@@ -1,0 +1,290 @@
+# Copied from fastga_tpu/io/gix.py; imports point at fastga_tpu_torch.
+"""GIX — syncmer-sampled k-mer genome index: build, read, write.
+
+In-memory ``GixTable`` holds the fully sorted entry arrays (the device merge
+consumes these directly); on-disk layout matches the reference "new" (v1.3+)
+GIX format exactly (GIXmake.c k_sort:1445-1580):
+
+`.gix` stub (native-endian):
+    int kmer, int nparts, int minval=1, int ibyte=3,
+    int64[2^24] cumulative prefix counts,
+    int post_bytes, int cont_bytes, int nparts, int64 maxpre,
+    int freq=0, int ncontig, int perm[ncontig], int64 -1 sentinel
+
+`.X.ktab.<p>` part files (p = 1..nparts):
+    int kmer, int64 nents, then nents entries of
+    [suffix 7B (bases 12..39, big-endian/byte)] [mask 1B] [lcp 1B]
+    [post little-endian post_bytes] [cont little-endian cont_bytes,
+     top bit of last byte = reverse-complement flag]
+
+Entry semantics: one entry per (syncmer position, orientation); `post` is the
+contig-relative start of a forward 40-mer, or the exclusive *end* of a
+reverse-complement 40-mer (= syncmer pos + 12, setup_thread_plain
+GIXmake.c:925-941); `cont` is the rank of the contig in descending-length
+order (Perm maps rank -> original contig id, GIXmake.c:1950-1963); `lcp` is
+the base-length of the longest common prefix with the predecessor entry's
+k-mer (first of a duplicate group), or 40 for subsequent duplicates
+(compress_thread GIXmake.c:1211-1260).
+
+Parity note: within duplicate-k-mer groups the reference's order is its
+(unstable) thread-radix-sort order; we use deterministic (cont, post, comp)
+order instead.  The reference's Ksplit part boundaries are histogram-trained;
+we balance actual bucket counts.  Both only affect part-file byte layout, not
+index semantics.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Tuple
+
+import numpy as np
+
+from ..ops import syncmer
+from ..ops.constants import COMP, KMER, LCPB
+from .gdb import GDB
+
+PREFIX_BITS = 24
+NPREFIX = 1 << PREFIX_BITS
+KBYTES = KMER // 4  # 10
+
+
+@dataclass
+class GixTable:
+    kmer: int
+    # sorted entry arrays (all length n):
+    kbytes: np.ndarray        # uint8[n, KBYTES] big-endian k-mer bytes
+    post: np.ndarray          # int32[n] contig-relative position
+    cont: np.ndarray          # int32[n] length-rank of contig
+    comp: np.ndarray          # bool[n] reverse-complement flag
+    lcp: np.ndarray           # uint8[n]
+    maskb: np.ndarray         # uint8[n] masked-prefix length
+    prefix_index: np.ndarray  # int64[2^24+1] panel offsets (cumulative)
+    perm: np.ndarray          # int32[ncontig] rank -> original contig
+    post_bytes: int
+    cont_bytes: int
+    freq: int = 0
+    seqtot: int = 0   # effective total bp (incl. short-GDB fake contigs)
+
+    @property
+    def n(self) -> int:
+        return len(self.post)
+
+    def searchsorted(self, codes: np.ndarray) -> int:
+        """Index of the first entry >= the given full-k-mer base codes."""
+        import bisect
+        q = codes.reshape(-1, 4)
+        probe = bytes((q[:, 0] << 6) | (q[:, 1] << 4) | (q[:, 2] << 2)
+                      | q[:, 3])
+        rows = self.kbytes
+
+        class _V:
+            def __getitem__(self, k):
+                return rows[k].tobytes()
+
+            def __len__(self):
+                return len(rows)
+
+        return bisect.bisect_left(_V(), probe)
+
+
+def _length_perm(contig_lens: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Descending-length stable permutation + inverse (LSORT GIXmake.c:1628)."""
+    perm = np.argsort(-contig_lens, kind="stable").astype(np.int32)
+    invp = np.empty_like(perm)
+    invp[perm] = np.arange(len(perm), dtype=np.int32)
+    return perm, invp
+
+
+def _bytes_for(maxval: int) -> int:
+    b, cum = 0, 1
+    while cum < maxval:
+        cum *= 256
+        b += 1
+    return max(b, 1)
+
+
+def build_gix(gdb: GDB, kmer: int = KMER, masks=None,
+              nthreads: int = 8) -> GixTable:
+    """GDB -> sorted GIX table (GIXmake equivalent).
+
+    ``masks``: optional list of io.gdb.MaskIval for masked-prefix bytes.
+    ``nthreads``: reference -T; only affects the short-GDB fake-contig
+    padding (short_GDB_fix GIXmake.c:1605-1624: GDBs with fewer contigs than
+    threads get fake KMER-length contigs that emit no entries but appear in
+    the persisted perm/ncontig) and the NPARTS choice at write time.
+    """
+    assert kmer % 4 == 0
+    kb = kmer // 4
+    lens = gdb.contig_lengths()
+    # short_GDB_fix: pad with fake KMER-length contigs up to nthreads
+    nfake = max(0, nthreads - len(lens))
+    lens_eff = np.concatenate([lens, np.full(nfake, kmer, dtype=np.int64)])
+    perm, invp = _length_perm(lens_eff)
+
+    mask_by_ctg = {}
+    if masks:
+        for m in masks:
+            mask_by_ctg.setdefault(m.contig, []).append((m.beg, m.end))
+
+    all_bytes: List[np.ndarray] = []
+    all_post: List[np.ndarray] = []
+    all_cont: List[np.ndarray] = []
+    all_comp: List[np.ndarray] = []
+    all_maskb: List[np.ndarray] = []
+
+    for r in range(gdb.ncontig):
+        clen = int(lens[r])
+        if clen < kmer:
+            continue
+        bases = gdb.get_contig(r)
+        fwd, rc = syncmer.index_entries(bases, kmer)
+        nb = syncmer.pack4(bases)  # big-endian byte at each position
+        # forward k-mer bytes: nb[j + 4t], t=0..kb-1
+        if len(fwd):
+            idx = fwd[:, None] + 4 * np.arange(kb)[None, :]
+            all_bytes.append(nb[idx])
+            all_post.append(fwd.astype(np.int32))
+            all_cont.append(np.full(len(fwd), invp[r], dtype=np.int32))
+            all_comp.append(np.zeros(len(fwd), dtype=bool))
+        # rc k-mer bytes: COMP[nb[post - 4 - 4t]], t=0..kb-1
+        if len(rc):
+            idx = rc[:, None] - 4 - 4 * np.arange(kb)[None, :]
+            all_bytes.append(COMP[nb[idx]])
+            all_post.append(rc.astype(np.int32))
+            all_cont.append(np.full(len(rc), invp[r], dtype=np.int32))
+            all_comp.append(np.ones(len(rc), dtype=bool))
+        nf, nr = len(fwd), len(rc)
+        if mask_by_ctg.get(r):
+            cov = np.zeros(clen + 1, dtype=np.int8)
+            for b, e in mask_by_ctg[r]:
+                cov[b:e] = 1
+            mb_f = _masked_prefix(cov, fwd, kmer, False)
+            mb_r = _masked_prefix(cov, rc, kmer, True)
+        else:
+            mb_f = np.zeros(nf, dtype=np.uint8)
+            mb_r = np.zeros(nr, dtype=np.uint8)
+        if nf:
+            all_maskb.append(mb_f)
+        if nr:
+            all_maskb.append(mb_r)
+
+    if all_bytes:
+        kbytes = np.concatenate(all_bytes)
+        post = np.concatenate(all_post)
+        cont = np.concatenate(all_cont)
+        comp = np.concatenate(all_comp)
+        maskb = np.concatenate(all_maskb)
+    else:
+        kbytes = np.zeros((0, kb), dtype=np.uint8)
+        post = np.zeros(0, dtype=np.int32)
+        cont = np.zeros(0, dtype=np.int32)
+        comp = np.zeros(0, dtype=bool)
+        maskb = np.zeros(0, dtype=np.uint8)
+
+    # global sort by (kmer, cont, post, comp): two stable argsorts — the
+    # tie key (cont, post, comp) packs into int64, then khi+klo as a
+    # second stable pass — instead of a 5-key lexsort
+    khi = kbytes[:, :8].copy().view(">u8").reshape(-1)
+    klo = (kbytes[:, 8:kb].copy().view(f">u{max(kb-8,1)}").reshape(-1)
+           if kb > 8 else np.zeros(len(post), dtype=np.uint8))
+    nent = len(post)
+    pmax = int(post.max()) + 1 if nent else 1
+    cmax = int(cont.max()) + 1 if nent else 1
+    if nent and cmax * pmax * 2 < (1 << 62) and kb <= 12:
+        tie = ((cont.astype(np.int64) * pmax + post) << 1) | comp
+        o1 = np.argsort(tie, kind="stable")
+        # second pass: stable by (khi, klo) — pack klo (<= 4 bytes) into
+        # the low bits when khi < 2^48 is not guaranteed, so sort klo
+        # then khi (both stable)
+        o2 = o1[np.argsort(klo[o1].astype(np.uint64), kind="stable")]
+        order = o2[np.argsort(khi[o2], kind="stable")]
+    else:
+        order = np.lexsort((comp, post, cont, klo, khi))
+    kbytes = kbytes[order]
+    post = post[order]
+    cont = cont[order]
+    comp = comp[order]
+    maskb = maskb[order]
+
+    lcp = _compute_lcp(kbytes, kmer)
+    prefix_index = _prefix_index(kbytes)
+
+    return GixTable(
+        kmer=kmer, kbytes=kbytes, post=post, cont=cont, comp=comp,
+        lcp=lcp, maskb=maskb, prefix_index=prefix_index, perm=perm,
+        post_bytes=_bytes_for(int(lens_eff.max()) if len(lens_eff) else 1),
+        cont_bytes=_bytes_for(2 * len(lens_eff)),
+        seqtot=gdb.seqtot + nfake * kmer,
+    )
+
+
+def _masked_prefix(cov: np.ndarray, posts: np.ndarray, kmer: int,
+                   is_rc: bool) -> np.ndarray:
+    """Masked-prefix length byte: # of leading k-mer bases soft-masked.
+
+    For a forward entry at post j the k-mer occupies [j, j+kmer); its leading
+    bases in sequence order.  For an RC entry with post p the k-mer occupies
+    [p-kmer, p) and its leading bases run backward from p-1.
+    """
+    if len(posts) == 0:
+        return np.zeros(0, dtype=np.uint8)
+    # prefix run length of 1s from a starting point, capped at kmer
+    out = np.zeros(len(posts), dtype=np.uint8)
+    run = _runlen_of_ones(cov)
+    if is_rc:
+        runr = _runlen_of_ones(cov[::-1])
+        n = len(cov)
+        out = np.minimum(runr[n - posts], kmer).astype(np.uint8)
+    else:
+        out = np.minimum(run[posts], kmer).astype(np.uint8)
+    return out
+
+
+def _runlen_of_ones(cov: np.ndarray) -> np.ndarray:
+    """r[i] = length of the run of 1s starting at i (0 if cov[i]==0)."""
+    n = len(cov)
+    r = np.zeros(n + 1, dtype=np.int64)
+    # compute via reverse scan in vector form: group ids by change points
+    c = cov.astype(np.int64)
+    rev = c[::-1]
+    cs = np.cumsum(rev)
+    reset = np.where(rev == 0, cs, 0)
+    run_rev = cs - np.maximum.accumulate(reset)
+    r[:n] = run_rev[::-1]
+    return r
+
+
+def _compute_lcp(kbytes: np.ndarray, kmer: int) -> np.ndarray:
+    n = len(kbytes)
+    lcp = np.zeros(n, dtype=np.uint8)
+    if n <= 1:
+        return lcp
+    a, b = kbytes[:-1], kbytes[1:]
+    neq = a != b
+    anydiff = neq.any(axis=1)
+    first = np.argmax(neq, axis=1)
+    xorb = a[np.arange(n - 1), first] ^ b[np.arange(n - 1), first]
+    inbyte = LCPB[xorb]
+    val = np.where(anydiff, 4 * first + inbyte, kmer)
+    # duplicates get 40 (the "full match" marker, compress_thread)
+    lcp[1:] = val.astype(np.uint8)
+    lcp[0] = 0
+    return lcp
+
+
+def _prefix_index(kbytes: np.ndarray) -> np.ndarray:
+    n = len(kbytes)
+    pre = np.zeros(NPREFIX + 1, dtype=np.int64)
+    if n:
+        p24 = ((kbytes[:, 0].astype(np.int64) << 16)
+               | (kbytes[:, 1].astype(np.int64) << 8)
+               | kbytes[:, 2].astype(np.int64))
+        counts = np.bincount(p24, minlength=NPREFIX)
+        pre[1:] = np.cumsum(counts)
+    return pre
+
+
+# -- on-disk ------------------------------------------------------------------
+
+

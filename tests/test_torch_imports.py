@@ -1,0 +1,59 @@
+"""The port imports neither JAX nor the JAX package, and its entry point
+runs on the card unless the caller asks for the CPU."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax():
+    """Import every module of fastga_tpu_torch, and chip_smoke as a
+    module, in a fresh interpreter (this one has jax loaded by the
+    conftest)."""
+    import fastga_tpu_torch
+    mods = ["fastga_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages(fastga_tpu_torch.__path__,
+                                              "fastga_tpu_torch.")]
+    assert "fastga_tpu_torch.ops.wave_kernels" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib') or m.startswith('jax') or m == 'fastga_tpu' "
+        "or m.startswith('fastga_tpu.')]\n"
+        "print(repr(bad))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_align_genomes_needs_the_card_unless_cpu(monkeypatch):
+    import torch
+
+    from fastga_tpu_torch.models import aligner
+    from fastga_tpu_torch.utils import synth
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g, _ = synth.to_gdb("a", [synth.np.zeros(100, synth.np.uint8)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        aligner.align_genomes(g, g)
+    assert aligner.resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_wrappers_refuse_cpu_mix():
+    """A CUDA wrapper never takes the plain path for a CUDA tensor and
+    checks what it is given: a CPU tensor handed to the launch checks
+    is refused."""
+    import torch
+
+    from fastga_tpu_torch.ops import wave_kernels as wk
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        wk._check(torch.zeros(4, dtype=torch.int32), torch.int32, (4,),
+                  "pool")

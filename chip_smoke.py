@@ -2,28 +2,32 @@
 
     python3 chip_smoke.py            # every phase, one card
 
-Phases:
+Phases (every one runs; any failure exits non-zero before the summary):
 1. environment: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the nvcc build of the three wave kernels;
 2. each kernel against its plain PyTorch version on the card, at the main
    path's widths (wave_chunk at n=512/W=256/chunk=96/k=4 in both
-   directions and at the W=512 and W=2048 rescue geometries, compared
-   through canon_state; wave0 and backtrack_walk bit for bit), with
-   kernel ms, plain ms and the floor (the larger of bytes over HBM rate
-   and integer operations over the float32 peak);
-3. the main path on the uniform scenario (192 x 50 kb per side), which must
+   directions, again on an indel-rich batch whose wide bands overflow
+   W=256, and at the W=512 and W=2048 rescue geometries, compared through
+   canon_state; wave0 and backtrack_walk bit for bit), with kernel ms,
+   plain ms and the floor (the larger of bytes over HBM rate and integer
+   operations over the float32 peak);
+3. the rescue lanes on the card: BatchAligner items that exhaust their
+   wave budget or overflow the W=256 band go to the W=512 lane and must
+   equal the exact scalar engine;
+4. the main path on the uniform scenario (192 x 50 kb per side), which must
    give 288 alignments covering 9,600,142 bp, with every kernel launched;
-4. the main path on the repeat-rich scenario (24 Mbp per side), which must
+5. the main path on the repeat-rich scenario (24 Mbp per side), which must
    give 92,988 alignments covering 187,735,625 bp;
-5. exactness: a small mutated pair with an inversion through the card path
+6. exactness: a small mutated pair with an inversion through the card path
    and the port's exact scalar engine (engine="ref") gives equal records;
-6. the device busy share of the uniform run under torch.profiler.
+7. the device busy share of the uniform run under torch.profiler (its
+   Chrome trace goes to fastga_tpu_torch/_build/profile/).
 
 The second-to-last line is the per-kernel JSON summary, the last line the
-device summary.  Any failure raises (exit status 1) before either prints.
+device summary.
 """
 
-import argparse
 import json
 import os
 import subprocess
@@ -83,16 +87,27 @@ def cuda_ms(fn, reps, windows=1):
     return float(np.median(times))
 
 
-def seeded_batch(n, W, seed, contigs=8, clen=50_000):
-    """n tubes over synth.uniform_pair contig pairs: pool, targs and the
-    wave-0 columns, as CUDA tensors."""
+def seeded_batch(n, W, seed, wide=False, contigs=8, clen=50_000):
+    """n tubes over seeded contig pairs: pool, targs and the wave-0
+    columns, as CUDA tensors.  A plain batch pairs synth.uniform_pair
+    contigs (1% divergence) with bands of at most +-20 diagonals.  A
+    ``wide`` batch pairs 8%-divergent indel-rich contigs and gives every
+    odd tube a band of W-5 to W-1 diagonals, which overflows W-4 on the
+    first wave unless the WAVE_LAG prune narrows it: the band-overflow
+    fallback of the stepper."""
     import torch
 
     from fastga_tpu_torch import convert
     from fastga_tpu_torch.ops import seqpack
     from fastga_tpu_torch.utils import synth
     rng = np.random.default_rng(seed)
-    pair = synth.uniform_pair(rng, contigs, clen)
+    if wide:
+        A = [rng.integers(0, 4, clen).astype(np.uint8)
+             for _ in range(contigs)]
+        pair = dict(A=A, B=[synth.mutate(rng, a, 0.08, indel_frac=0.4)
+                            for a in A])
+    else:
+        pair = synth.uniform_pair(rng, contigs, clen)
     seqs = {}
     for i in range(contigs):
         seqs[("a", i)] = pair["A"][i]
@@ -107,6 +122,11 @@ def seeded_batch(n, W, seed, contigs=8, clen=50_000):
     half = min(20, W // 8)
     dgmin = rng.integers(-half, 0, n).astype(np.int32)
     dgmax = rng.integers(1, half, n).astype(np.int32)
+    if wide:
+        h = rng.integers(W // 2 - 3, W // 2, n)
+        odd = np.arange(n) % 2 == 1
+        dgmin = np.where(odd, -h, dgmin).astype(np.int32)
+        dgmax = np.where(odd, h, dgmax).astype(np.int32)
     dev = torch.device("cuda")
     targs = convert.targs_from_numpy(
         (aw, alen, bw, blen, np.full(n, -(1 << 30), np.int32),
@@ -160,12 +180,13 @@ def check_wave0(n, W, seed, direction, reps=20):
                 bound_by=by)
 
 
-def check_chunk(n, W, chunk, k, seed, direction, spec, reps=5):
+def check_chunk(n, W, chunk, k, seed, direction, spec, wide=False, reps=5):
     import torch
 
     from fastga_tpu_torch.ops import wave_kernels as wk
     G = k * chunk
-    pool, targs, (dgmin, dgmax, anti, valid) = seeded_batch(n, W, seed)
+    pool, targs, (dgmin, dgmax, anti, valid) = seeded_batch(n, W, seed,
+                                                            wide)
     st0 = wk.wave0(pool, targs, dgmin, dgmax, anti, valid, W, direction)
     st_k, ch_k, kb_k = wk.wave_chunk(pool, targs, st0, spec, direction, G)
     st_p, ch_p, band_p = wk.chunk_plain(pool, targs, st0, spec, direction,
@@ -195,8 +216,12 @@ def check_chunk(n, W, chunk, k, seed, direction, spec, reps=5):
     rows = torch.arange(G, device=width.device)[:, None] < live[None, :]
     slot_waves = int((width * rows).sum())
     bms, by = bound(nbytes, slot_waves * OPS_CHUNK_SLOT)
+    # tubes the plain stepper flagged while alive (band overflow or an
+    # empty band)
+    fell = int((st_p[16] & ~st0[16]).sum())
     return dict(err=err, bad=bad, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, waves=int(live.max()))
+                bound_by=by, waves_max=int(live.max()),
+                waves_mean=float(live.double().mean()), fell=fell)
 
 
 def check_walk(G, n, W, seed, reps=20):
@@ -231,16 +256,23 @@ def phase_kernels(spec):
             f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.3f} ms "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
         rows.setdefault("wave0", []).append(r)
-    for (n, W, chunk, k) in ((512, 256, 96, 4), (32, 512, 96, 4),
-                             (32, 2048, 24, 4)):
+    for (n, W, chunk, k, wide) in ((512, 256, 96, 4, False),
+                                   (512, 256, 96, 4, True),
+                                   (32, 512, 96, 4, False),
+                                   (32, 2048, 24, 4, False)):
         for d in (+1, -1):
-            r = check_chunk(n, W, chunk, k, 202, d, spec)
-            log(f"wave_chunk dir={d:+d} n={n} W={W} chunk={chunk} k={k}: "
-                f"max_abs_err={r['err']} {r['bad']} waves={r['waves']} "
-                f"kernel {r['ms']:.3f} ms plain {r['plain_ms']:.1f} ms "
-                f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+            r = check_chunk(n, W, chunk, k, 202, d, spec, wide)
+            log(f"wave_chunk dir={d:+d} n={n} W={W} chunk={chunk} k={k}"
+                f"{' wide' if wide else ''}: max_abs_err={r['err']} "
+                f"{r['bad']} live waves mean {r['waves_mean']:.1f} max "
+                f"{r['waves_max']} fell {r['fell']} kernel {r['ms']:.3f} ms "
+                f"plain {r['plain_ms']:.1f} ms bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']})")
+            if wide and r["fell"] == 0:
+                raise SystemExit("wave_chunk: the wide batch overflowed no "
+                                 "band; the fallback branch went unchecked")
             rows.setdefault("wave_chunk", []).append(
-                dict(r, shape=(n, W, chunk, k, d)))
+                dict(r, shape=(n, W, chunk, k, d, wide)))
     r = check_walk(1536, 512, 256, 303)
     log(f"backtrack_walk G=1536 n=512 W=256: max_abs_err={r['err']} "
         f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.1f} ms "
@@ -348,16 +380,67 @@ def phase_repeatrich(mbp):
                          f"{stats['cov']}; expected {REPEAT_RICH_EXPECT}")
 
 
+def phase_rescue():
+    """The rescue lanes on the card: a max_chunks=1 main engine exhausts
+    the wave budget of 8%-divergent tubes (fall_budget), and tubes whose
+    band spans W-5 or more diagonals overflow W=256 (fall_band); both go
+    to the W=512 lane and must equal the exact scalar engine, fields and
+    trace."""
+    from fastga_tpu_torch.ops import seqpack, wave as wavek, wave_ref
+    from fastga_tpu_torch.ops.wave_batch import BatchAligner, WorkItem
+    from fastga_tpu_torch.utils import synth
+    rng = np.random.default_rng(11)
+    A = rng.integers(0, 4, 20000).astype(np.uint8)
+    B = synth.mutate(rng, A, 0.08, indel_frac=0.4)
+    seqs = {("a", 0, False): A, ("b", 0): B}
+    pool = seqpack.SeqPool.build(seqs)
+    spec = wave_ref.AlignSpec(0.7)
+    cases = (
+        (1, [WorkItem(("a", 0, False), ("b", 0), -10, 10, 1000 + 4000 * i,
+                      False, len(A), len(B)) for i in range(4)]),
+        (64, [WorkItem(("a", 0, False), ("b", 0), -h, h, 1000 + 4000 * i,
+                       False, len(A), len(B))
+              for i, h in enumerate((125, 126, 127, 125))]))
+    stats = {}
+    for max_chunks, items in cases:
+        ba = BatchAligner(spec, pool.words, pool.offs, lambda k: seqs[k],
+                          wavek.WaveConfig(n=32, w=256, chunk=96,
+                                           max_chunks=max_chunks),
+                          device="cuda")
+        got = {}
+        ba.run_stream([(i, it) for i, it in enumerate(items)],
+                      lambda tok, p, waves=-1: got.__setitem__(tok, p) or [])
+        for key, v in ba.stats.items():
+            stats[key] = stats.get(key, 0) + v
+        for i, it in enumerate(items):
+            ref = wave_ref.local_alignment(spec, A, B, it.dgmin, it.dgmax,
+                                           it.anti, -1, -1)
+            p = got[i]
+            if ((p.abpos, p.bbpos, p.aepos, p.bepos, p.diffs,
+                 [tuple(t) for t in p.trace])
+                    != (ref.abpos, ref.bbpos, ref.aepos, ref.bepos,
+                        ref.diffs, [tuple(t) for t in ref.trace])):
+                raise SystemExit(f"rescue: item {i} (max_chunks "
+                                 f"{max_chunks}) differs from the exact "
+                                 "engine")
+    log(f"rescue: {sum(len(c[1]) for c in cases)} items equal to the exact "
+        f"engine; stats {json.dumps(stats)}")
+    for key in ("fall_budget", "fall_band", "rescued"):
+        if stats.get(key, 0) <= 0:
+            raise SystemExit(f"rescue: no tube took the {key} path")
+
+
 def phase_profile():
     """Device busy time of the uniform main path under torch.profiler
     (CPU + CUDA activities): the sum of device self time over wall."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from fastga_tpu_torch.models import aligner
+    from fastga_tpu_torch.utils import prof
     g1, g2 = uniform_gdbs()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p:
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "fastga_tpu_torch", "_build", "profile")
+    with prof.trace(out_dir) as p:
         t0 = time.perf_counter()
         aligner.align_genomes(g1, g2, device="cuda")
         torch.cuda.synchronize()
@@ -405,13 +488,6 @@ def phase_exact():
 
 
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases",
-                    default="kernels,uniform,repeatrich,exact,profile",
-                    help="comma-separated subset of the phases to run")
-    args = ap.parse_args()
-    phases = set(args.phases.split(","))
-
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -435,14 +511,12 @@ def main():
                     log(f"  ptxas {name}: {line.strip()}")
 
     spec = AlignSpec(0.7, 100, False, (0.25, 0.25, 0.25, 0.25))
-    kern = phase_kernels(spec) if "kernels" in phases else {}
-    launches = phase_uniform() if "uniform" in phases else {}
-    if "repeatrich" in phases:
-        phase_repeatrich(REPEAT_RICH_MBP)
-    if "exact" in phases:
-        phase_exact()
-    if "profile" in phases:
-        phase_profile()
+    kern = phase_kernels(spec)
+    phase_rescue()
+    launches = phase_uniform()
+    phase_repeatrich(REPEAT_RICH_MBP)
+    phase_exact()
+    phase_profile()
 
     summary = []
     for name, src, rep in (
@@ -452,14 +526,16 @@ def main():
              "fastga_tpu/ops/wave_pallas.py:1071"),
             ("backtrack_walk", "fastga_tpu_torch/csrc/backtrack_walk.cu",
              "fastga_tpu/ops/wave_pallas.py:954")):
-        k = kern.get(name, {})
+        k = kern[name]
         summary.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
-            launches=launches.get(name, 0), max_abs_err=k.get("max_abs_err"),
-            ms=k.get("ms"), plain_ms=k.get("plain_ms"),
-            bound_ms=k.get("bound_ms"), bound_by=k.get("bound_by", "bytes"),
-            library_ms=None,
-            equal=k.get("max_abs_err") == 0))
+            launches=launches[name], max_abs_err=k["max_abs_err"],
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=None,
+            equal=k["max_abs_err"] == 0))
+    for row in summary:
+        if not row["equal"] or row["launches"] <= 0 or row["ms"] is None:
+            raise SystemExit(f"kernel row incomplete: {row}")
     log(smi)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

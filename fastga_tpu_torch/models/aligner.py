@@ -33,7 +33,6 @@ BOX_FUZZ = 10
 
 ELIMINATED = 0x4
 
-DEFAULT_CFG = dict(n=512, w=256, chunk=96, max_chunks=512)
 SMALL_N = 64
 
 
@@ -462,7 +461,7 @@ def _pool_bucket(gdb1, gdb2) -> int:
 def make_engine(spec, device, cfg=None):
     """The main wave engine with its n=64 sibling (when wider)."""
     from ..ops import wave as wavek
-    cfg = cfg if cfg is not None else wavek.WaveConfig(**DEFAULT_CFG)
+    cfg = cfg if cfg is not None else wavek.WaveConfig()
     eng = wavek.WaveEngine(spec, cfg, device)
     if cfg.n > SMALL_N:
         eng._small = wavek.WaveEngine(

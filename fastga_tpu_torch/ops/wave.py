@@ -36,10 +36,12 @@ PAIR_CAP_NARROW = 64
 
 
 class WaveConfig(NamedTuple):
-    n: int = 256        # tubes per batch
+    """Engine geometry; the defaults are the JAX engine's main geometry
+    (fastga_tpu/models/aligner.py _device_align)."""
+    n: int = 512        # tubes per batch
     w: int = 256        # diagonal slots
-    chunk: int = 128    # waves per budget unit
-    max_chunks: int = 64
+    chunk: int = 96     # waves per budget unit
+    max_chunks: int = 512
 
 
 class WaveResult(NamedTuple):

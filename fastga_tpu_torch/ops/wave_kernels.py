@@ -498,7 +498,7 @@ _SC_NAMES = ("besta", "bestx", "lasta", "trima", "trimx", "trimd",
              "trim_wave", "trim_slot", "alive", "fallback", "dif")
 
 
-def canon_state(state, logs=None, W=None, dif0=0):
+def canon_state(state, logs=None, W=None):
     """Slot-space independent form of a state (and its logs), for holding
     states that were recentered differently against each other.
 
@@ -507,7 +507,7 @@ def canon_state(state, logs=None, W=None, dif0=0):
     (``lowd``/``hghd``); every other scalar column as is.  ``logs`` =
     (choice [G, N, W], kbase [G, N]): each row is shifted so its first
     in-band slot lands at 0 (``ch``), with that slot's diagonal in
-    ``chd``; rows beyond a tube's last live wave (dif - dif0) are zeroed.
+    ``chd``; rows beyond a tube's last live wave (dif) are zeroed.
     Returns a dict of numpy arrays."""
     st = [t.detach().cpu() for t in state]
     W = W if W is not None else st[0].shape[1]
@@ -530,7 +530,7 @@ def canon_state(state, logs=None, W=None, dif0=0):
         ch, kb = (t.detach().cpu() for t in logs)
         G = ch.shape[0]
         live = (torch.arange(G)[:, None]
-                < (st[17].to(torch.int64) - dif0)[None, :])   # [G, N]
+                < st[17].to(torch.int64)[None, :])   # [G, N]
         first = torch.where(ch != CH_NONE, wix[None], W).min(2).values
         src = (first.clamp(max=W - 1)[:, :, None] + wix[None])
         row = torch.where(src < W, torch.gather(

@@ -1,6 +1,6 @@
 """Tiny accumulating profiler (port of fastga_tpu/utils/prof.py).
 
-Usage:  with prof.span("wave.pair_dispatch"): ...   /  prof.add(name, dt)
+Usage:  with prof.span("wave.pair_dispatch"): ...   /  prof.count(name, n)
 ``report()`` returns {name: (seconds, calls)}.  Off by default: set
 ``prof.ENABLED = True``; the spans then also mark NVTX ranges on the card,
 so a torch.profiler trace (``trace(dir)``) shows them on the timeline.
@@ -42,12 +42,6 @@ def span(name):
         _cnt[name] += 1
         if nv is not None:
             nv.range_pop()
-
-
-def add(name, dt):
-    if ENABLED:
-        _acc[name] += dt
-        _cnt[name] += 1
 
 
 def count(name, n=1):

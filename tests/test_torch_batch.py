@@ -128,6 +128,34 @@ def test_band_overflow_rescue_lane(specs):
         _same(ref, got[i], i)
 
 
+def test_wide_band_overflow_rescue_lane(specs):
+    """Tubes whose starting band spans W-5 or more diagonals overflow the
+    W=256 band on their first wave (fall_band): the W=512 rescue lane
+    takes them and still matches the scalar reference."""
+    from fastga_tpu_torch.utils import synth
+    jspec, spec = specs
+    rng = np.random.default_rng(11)
+    A = rng.integers(0, 4, 8000).astype(np.uint8)
+    B = synth.mutate(rng, A, 0.08, indel_frac=0.4)
+    seqs = {("a", 0, False): A, ("b", 0): B}
+    pool = seqpack.SeqPool.build(seqs)
+    cfg = tw.WaveConfig(n=32, w=256, chunk=96, max_chunks=64)
+    ba = tb.BatchAligner(spec, pool.words, pool.offs, lambda k: seqs[k],
+                         cfg, device="cpu")
+    items = [tb.WorkItem(("a", 0, False), ("b", 0), -h, h, 1000 + 4000 * i,
+                         False, len(A), len(B))
+             for i, h in enumerate((125, 126))]
+    got = {}
+    ba.run_stream([(i, it) for i, it in enumerate(items)],
+                  lambda tok, p, waves=-1: got.__setitem__(tok, p) or [])
+    assert ba.stats.get("fall_band", 0) > 0, ba.stats
+    assert ba.stats.get("rescued", 0) > 0, ba.stats
+    for i, it in enumerate(items):
+        ref = jwr.local_alignment(jspec, A, B, it.dgmin, it.dgmax, it.anti,
+                                  -1, -1)
+        _same(ref, got[i], i)
+
+
 def test_pool_tail_alignment_exact(specs):
     """A B sequence ending in the pool's last words aligns exactly (the
     fetch clamps at the pool end like the host mirror)."""

@@ -4,9 +4,9 @@
 
 Phases (every one runs; any failure exits non-zero before the summary):
 1. environment: the card (nvidia-smi name and power limit), torch and CUDA
-   versions, and the nvcc build of the three wave kernels;
-2. each kernel against its plain PyTorch version on the card, at the main
-   path's widths (wave_chunk at n=512/W=256/chunk=96/k=4 in both
+   versions, and the nvcc build of the five kernels (csrc/*.cu);
+2. each wave kernel against its plain PyTorch version on the card, at the
+   main path's widths (wave_chunk at n=512/W=256/chunk=96/k=4 in both
    directions, again on an indel-rich batch whose wide bands overflow
    W=256, and at the W=512 and W=2048 rescue geometries, compared through
    canon_state; wave0 and backtrack_walk bit for bit), with kernel ms,
@@ -15,13 +15,23 @@ Phases (every one runs; any failure exits non-zero before the summary):
 3. the rescue lanes on the card: BatchAligner items that exhaust their
    wave budget or overflow the W=256 band go to the W=512 lane and must
    equal the exact scalar engine;
-4. the main path on the uniform scenario (192 x 50 kb per side), which must
-   give 288 alignments covering 9,600,142 bp, with every kernel launched;
-5. the main path on the repeat-rich scenario (24 Mbp per side), which must
-   give 92,988 alignments covering 187,735,625 bp;
-6. exactness: a small mutated pair with an inversion through the card path
+4. the main path on the uniform scenario (192 x 50 kb per side) with the
+   device seed pipeline: 3,799,831 seeds, 288 tubes, 288 alignments
+   covering 9,600,142 bp, a TubeBatch equal to the host seed path's, and
+   every kernel launched; then its device_tubes again with the chain in
+   A-contig panels (CHAIN_DEV_CAP lowered below its seed bucket), equal to
+   the monolithic run;
+5. the main path on the repeat-rich scenario (24 Mbp per side): 22,902,602
+   seeds, 99,999 tubes, 92,988 alignments covering 187,735,625 bp;
+6. merge_path and fused_scan against their plain versions, bit for bit on
+   every row, on the inputs the main path gave them (the uniform
+   merge_seeds merge, the repeat-rich chain merge, every scan spec either
+   run called, in both directions) and at small and odd shapes, with
+   kernel ms, plain ms, the byte bound and a yardstick that computes less
+   (torch.sort of the first key, torch.cumsum of the channels);
+7. exactness: a small mutated pair with an inversion through the card path
    and the port's exact scalar engine (engine="ref") gives equal records;
-7. the device busy share of the uniform run under torch.profiler (its
+8. the device busy share of the uniform run under torch.profiler (its
    Chrome trace goes to fastga_tpu_torch/_build/profile/).
 
 The second-to-last line is the per-kernel JSON summary, the last line the
@@ -48,10 +58,14 @@ OPS_WAVE0_SLOT = 20
 OPS_WALK_STEP = 6
 REPEAT_RICH_MBP = 24
 # fastga_tpu's results on the two seeded inputs (its bench.py scenarios; the
-# JAX package's own runs in BENCH_r04.json/BENCH_r05.json): alignments and
-# bp covered
+# JAX package's own runs in BENCH_r04.json/BENCH_r05.json, device seed
+# path): alignments and bp covered, then seeds and tubes
 UNIFORM_EXPECT = (288, 9_600_142)
 REPEAT_RICH_EXPECT = (92_988, 187_735_625)
+UNIFORM_SEEDS = (3_799_831, 288)
+REPEAT_RICH_SEEDS = (22_902_602, 99_999)
+KERNELS = ("wave_chunk", "wave0", "backtrack_walk", "merge_path",
+           "fused_scan")
 
 
 def log(msg):
@@ -66,12 +80,12 @@ def smi_line():
     return out[0] if out else ""
 
 
-def cuda_ms(fn, reps, windows=1):
+def cuda_ms(fn, reps, windows=1, warm=3):
     """Mean ms per call over ``reps`` calls between CUDA events, after
-    three warm-up calls; the median over ``windows`` such windows (the
+    ``warm`` warm-up calls; the median over ``windows`` such windows (the
     first timed kernel of a process can run at idle clocks)."""
     import torch
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -291,8 +305,204 @@ def phase_kernels(spec):
     return out
 
 
+# -- the seed pipeline's kernels ----------------------------------------------
+
+
+class SeedCapture:
+    """Wraps the device pipeline's kernel entry points (and device_tubes)
+    for one main-path run, to keep the inputs the path gave the kernels
+    (per merge column count and per scan spec, the largest call) and the
+    TubeBatch it made.  The wrapped calls launch the kernels as before."""
+
+    def __init__(self):
+        self.merge = {}
+        self.scan = {}
+        self.tubes = None
+        self.tubes_args = None
+
+    def __enter__(self):
+        from fastga_tpu_torch.ops import device_pipeline as tp
+        self._orig = (tp.merge_sorted_streams, tp.fused_scan,
+                      tp.device_tubes)
+        merge, scan, tubes = self._orig
+
+        def merge_w(opsA, opsB):
+            m = opsA[0].shape[0] + opsB[0].shape[0]
+            old = self.merge.get(len(opsA))
+            if old is None or m > old[0][0].shape[0] + old[1][0].shape[0]:
+                self.merge[len(opsA)] = (opsA, opsB)
+            return merge(opsA, opsB)
+
+        def scan_w(values, spec, flags=(), reverse=False):
+            key = (tuple(spec), len(flags), bool(reverse))
+            old = self.scan.get(key)
+            if old is None or values[0].shape[0] > old[0][0].shape[0]:
+                self.scan[key] = (tuple(values), tuple(flags))
+            return scan(values, spec, flags, reverse)
+
+        def tubes_w(*a, **k):
+            self.tubes_args = (a, k)
+            self.tubes = tubes(*a, **k)
+            return self.tubes
+
+        tp.merge_sorted_streams, tp.fused_scan, tp.device_tubes = (
+            merge_w, scan_w, tubes_w)
+        return self
+
+    def __exit__(self, *exc):
+        from fastga_tpu_torch.ops import device_pipeline as tp
+        tp.merge_sorted_streams, tp.fused_scan, tp.device_tubes = self._orig
+
+
+def merge_streams(E1, E2, n1, n2, ncols, seed):
+    """Two ascending int64 streams (numpy from a seed, on the card): k1
+    sorted, k2 and payloads random, +MAX tails after n1 / n2 live rows."""
+    import torch
+    rng = np.random.default_rng(seed)
+    out = []
+    for E, n, parity in ((E1, n1, 0), (E2, n2, 1)):
+        cols = [np.sort(rng.integers(-2 ** 62, 2 ** 62, n, dtype=np.int64)),
+                (rng.integers(0, 2 ** 61, n, dtype=np.int64) // 2) * 2
+                + parity]
+        cols += [rng.integers(0, 2 ** 62, n, dtype=np.int64)
+                 for _ in range(ncols - 2)]
+        pad = np.full(E - n, np.iinfo(np.int64).max)
+        out.append(tuple(torch.as_tensor(np.concatenate([c, pad]),
+                                         device="cuda") for c in cols))
+    return out
+
+
+def check_merge(opsA, opsB, reps=10):
+    """merge_path against its plain version on every row, kernel and plain
+    ms, the byte bound (16 bytes per row and column: each input word read
+    once, each output word written once) and the yardstick: a stable
+    torch.sort of the concatenated first key (it computes less)."""
+    import torch
+
+    from fastga_tpu_torch.ops import merge_kernels as mk
+    got = mk.merge_sorted_streams(opsA, opsB)
+    want = mk.merge_plain(opsA, opsB)
+    torch.cuda.synchronize()
+    err = 0
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            err = max(err, int((a != b).sum()))
+    M = opsA[0].shape[0] + opsB[0].shape[0]
+    ms = cuda_ms(lambda: mk.merge_sorted_streams(opsA, opsB), reps,
+                 windows=5)
+    plain_ms = cuda_ms(lambda: mk.merge_plain(opsA, opsB), 1, warm=1)
+    k1 = torch.cat([opsA[0], opsB[0]])
+    yard_ms = cuda_ms(lambda: torch.sort(k1, stable=True), 2)
+    bms, by = bound(16 * M * len(opsA), 0)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, yard_ms=yard_ms,
+                shape=(opsA[0].shape[0], opsB[0].shape[0], len(opsA)))
+
+
+def check_scan(values, spec, flags, reverse, reps=10):
+    """fused_scan against its plain version on every row, kernel and plain
+    ms, the byte bound (4 bytes per row for each flag, 8 for each channel:
+    read once, written once) and the yardstick: torch.cumsum of the stacked
+    channels (it computes less)."""
+    import torch
+
+    from fastga_tpu_torch.ops import scan_kernels as sk
+    got = sk.fused_scan(values, spec, flags, reverse)
+    want = sk.fused_scan_plain(values, spec, flags, reverse)
+    torch.cuda.synchronize()
+    err = 0
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    M = values[0].shape[0]
+    ms = cuda_ms(lambda: sk.fused_scan(values, spec, flags, reverse), reps,
+                 windows=5)
+    plain_ms = cuda_ms(lambda: sk.fused_scan_plain(values, spec, flags,
+                                                   reverse), 1, warm=1)
+    stack = torch.stack([v.to(torch.int32) for v in values])
+    yard_ms = cuda_ms(lambda: torch.cumsum(stack, 1, dtype=torch.int32), 2)
+    bms, by = bound(4 * M * (len(flags) + 2 * len(values)), 0)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, yard_ms=yard_ms,
+                shape=(M, len(values), len(flags), bool(reverse)))
+
+
+def _spec_str(spec):
+    from collections import Counter
+    return "+".join(f"{n}x{op}" + ("" if fid is None else f"/f{fid}")
+                    for (op, fid), n in Counter(spec).items())
+
+
+def phase_seed_kernels(cap_uniform, cap_rr):
+    """merge_path and fused_scan against their plain versions, bit for bit
+    on every row: on the inputs the main path gave them (merge: uniform
+    merge_seeds, 4 columns, and the repeat-rich chain merge, 3 columns;
+    scan: every spec either run called, in both directions), and at small
+    and odd shapes."""
+    import torch
+    rows = {"merge_path": [], "fused_scan": []}
+    # the main path's two merges, then 1 + 1000 rows and a side with no
+    # invalid tail, neither a multiple of the tile
+    cases = [cap_uniform.merge[4], cap_rr.merge[3],
+             merge_streams(1, 1000, 1, 990, 4, 401),
+             merge_streams(4096 + 77, 3001, 4096 + 77, 2000, 3, 402)]
+    for opsA, opsB in cases:
+        r = check_merge(opsA, opsB)
+        log(f"merge_path E1={r['shape'][0]} E2={r['shape'][1]} "
+            f"cols={r['shape'][2]}: unequal rows {r['err']} kernel "
+            f"{r['ms']:.4f} ms plain {r['plain_ms']:.3f} ms bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}) yardstick sort "
+            f"{r['yard_ms']:.3f} ms")
+        rows["merge_path"].append(r)
+    # every spec either run called, at the larger of its two main-path
+    # sizes (the uniform run's coverage sum is a scan, repeat-rich's not)
+    scan = dict(cap_uniform.scan)
+    for key, vf in cap_rr.scan.items():
+        if key not in scan or vf[0][0].shape[0] > scan[key][0][0].shape[0]:
+            scan[key] = vf
+    scans = sorted(scan.items(),
+                   key=lambda kv: -len(kv[0][0]) * kv[1][0][0].shape[0])
+    for (spec, _, reverse), (values, flags) in scans:
+        for rev in (reverse, not reverse):
+            r = check_scan(values, spec, flags, rev)
+            log(f"fused_scan M={r['shape'][0]} {_spec_str(spec)} "
+                f"flags={len(flags)} reverse={rev}"
+                f"{'' if rev == reverse else ' (mirrored)'}: max_abs_err "
+                f"{r['err']} kernel {r['ms']:.4f} ms plain "
+                f"{r['plain_ms']:.3f} ms bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']}) yardstick cumsum {r['yard_ms']:.3f} ms")
+            rows["fused_scan"].append(r)
+    rng = np.random.default_rng(403)
+    spec6 = (("sum", None), ("max", 0), ("min", 1), ("last", 1),
+             ("sum", 0), ("max", None))
+    for M in (1, 4096 * 3 + 37):
+        vals = [torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, M)
+                                .astype(np.int32), device="cuda")
+                for _ in spec6]
+        fl = [torch.as_tensor((rng.random(M) < p).astype(np.int32),
+                              device="cuda") for p in (0.02, 0.3)]
+        for rev in (False, True):
+            r = check_scan(vals, spec6, fl, rev)
+            log(f"fused_scan M={M} {_spec_str(spec6)} reverse={rev}: "
+                f"max_abs_err {r['err']} kernel {r['ms']:.4f} ms")
+            rows["fused_scan"].append(r)
+    out = {}
+    for name, rs in rows.items():
+        err = max(x["err"] for x in rs)
+        if err != 0:
+            raise SystemExit(f"{name}: kernel disagrees with its plain "
+                             f"version ({err}): {rs}")
+        main = rs[0]
+        out[name] = dict(max_abs_err=err, ms=main["ms"],
+                         plain_ms=main["plain_ms"],
+                         bound_ms=main["bound_ms"],
+                         bound_by=main["bound_by"])
+    return out
+
+
 PHASES = {
-    "seed pipeline": ("aligner.gix", "aligner.merge", "aligner.chain"),
+    "seed pipeline": ("aligner.devpipe", "aligner.gix", "aligner.merge",
+                      "aligner.chain"),
     "wave fetch-wait": ("wave.collect_fetch",),
     "wave dispatch": ("wave.pair_dispatch", "wave.chunk_dispatch",
                       "wave.pair_extend"),
@@ -344,23 +554,103 @@ def uniform_gdbs():
     return synth.to_gdb("a", pair["A"])[0], synth.to_gdb("b", pair["B"])[0]
 
 
+def check_seeds(name, stats, expect):
+    got = (stats.get("nseeds"), stats.get("nhits"))
+    if stats.get("seed_pipeline") != "device" or got != expect:
+        raise SystemExit(f"{name}: seed pipeline "
+                         f"{stats.get('seed_pipeline')} "
+                         f"({stats.get('seed_decline', '')}), nseeds/nhits "
+                         f"{got}; expected device, {expect}")
+
+
+def tube_diff(want, got):
+    """The TubeBatch fields in which two batches differ."""
+    bad = [f for f in vars(want)
+           if not np.array_equal(np.asarray(getattr(want, f), np.int64),
+                                 np.asarray(getattr(got, f), np.int64))]
+    return bad or ([] if want.n == got.n else ["n"])
+
+
+def check_host_tubes(g1, g2, tubes):
+    """The device TubeBatch against the host seed path's (the path of self
+    comparison and engine="ref") on the same input, every field."""
+    from fastga_tpu_torch.io.gix import build_gix
+    from fastga_tpu_torch.ops import chain as chainm, merge as mergem
+    t1, t2 = build_gix(g1), build_gix(g2)
+    seeds = mergem.adaptamer_seeds(t1, t2, freq=10)
+    lens1, lens2 = g1.contig_lengths(), g2.contig_lengths()
+    perm = np.asarray(t1.perm)
+    alens = np.where(perm < len(lens1),
+                     lens1[np.minimum(perm, len(lens1) - 1)], t1.kmer)
+    host = chainm.chain_tubes(seeds, int(lens1.max()), int(lens2.max()),
+                              alens)
+    bad = tube_diff(host, tubes)
+    if bad:
+        raise SystemExit(f"uniform: device TubeBatch ({tubes.n} tubes) "
+                         f"differs from the host path's ({host.n}): {bad}")
+    log(f"uniform: device TubeBatch equal to the host path's ({host.n} "
+        f"tubes, {seeds.n} seeds)")
+
+
+def check_paneled(cap):
+    """The paneled chain sweep on the card: device_tubes again on the
+    uniform run's arguments, with CHAIN_DEV_CAP below its seed bucket
+    (4,194,304), so the chain runs in A-contig panels of CHAIN_DEV_CAP / 2
+    seeds; the TubeBatch, seed count and seed-length sum must equal the
+    monolithic run's."""
+    import torch
+
+    from fastga_tpu_torch.ops import device_pipeline as tp
+    want_tubes, want_ns, want_pl = cap.tubes
+    args, kwargs = cap.tubes_args
+    panels = []
+    orig = (tp.CHAIN_DEV_CAP, tp._chain_panel)
+
+    def panel(*a):
+        panels.append(a[4])     # the panel's seed count
+        return orig[1](*a)
+    tp.CHAIN_DEV_CAP, tp._chain_panel = 1 << 21, panel
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tubes, ns, pl = tp.device_tubes(*args, **kwargs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        tp.CHAIN_DEV_CAP, tp._chain_panel = orig
+    bad = tube_diff(want_tubes, tubes)
+    if len(panels) < 2 or bad or (ns, pl) != (want_ns, want_pl):
+        raise SystemExit(f"uniform paneled: {len(panels)} panels, "
+                         f"{tubes.n} tubes, {ns} seeds; differs from the "
+                         f"monolithic run: {bad}")
+    log(f"uniform paneled: chain in {len(panels)} panels of up to "
+        f"{(1 << 21) // 2:,} seeds {panels}: TubeBatch, seeds and "
+        f"seed-length sum equal to the monolithic run's ({tubes.n} tubes, "
+        f"{ns} seeds; device_tubes {dt:.3f} s)")
+
+
 def phase_uniform():
-    from fastga_tpu_torch.ops import wave_kernels as wk
+    from fastga_tpu_torch.ops import cuda_build
     g1, g2 = uniform_gdbs()
-    wk.reset_launches()
-    ovls, stats, _ = run_main_path("uniform", g1, g2)
-    launches = dict(wk.LAUNCHES)
+    with SeedCapture() as cap:
+        cuda_build.reset_launches()
+        ovls, stats, _ = run_main_path("uniform", g1, g2)
+        launches = dict(cuda_build.LAUNCHES)
     log(f"  launches[uniform]: {json.dumps(launches)}")
     if (stats["nlive"], stats["cov"]) != UNIFORM_EXPECT:
         raise SystemExit(f"uniform: nlive {stats['nlive']} cov "
                          f"{stats['cov']}; expected {UNIFORM_EXPECT}")
-    for name, c in launches.items():
-        if c <= 0:
+    check_seeds("uniform", stats, UNIFORM_SEEDS)
+    for name in KERNELS:
+        if launches.get(name, 0) <= 0:
             raise SystemExit(f"uniform: kernel {name} was never launched")
-    return launches
+    check_host_tubes(g1, g2, cap.tubes[0])
+    check_paneled(cap)
+    return launches, cap
 
 
 def phase_repeatrich(mbp):
+    from fastga_tpu_torch.ops import cuda_build
     from fastga_tpu_torch.utils import synth
     rng = np.random.default_rng(0xBE7C4)
     t0 = time.perf_counter()
@@ -371,13 +661,16 @@ def phase_repeatrich(mbp):
     g2, _ = synth.to_gdb("b", pair["B"])
     log(f"repeatrich: {mbp:g} Mbp/side x{len(pair['A'])} contigs "
         f"(gen {time.perf_counter() - t0:.1f} s)")
-    from fastga_tpu_torch.ops import wave_kernels as wk
-    wk.reset_launches()
-    _, stats, _ = run_main_path("repeatrich", g1, g2)
-    log(f"  launches[repeatrich]: {json.dumps(wk.LAUNCHES)}")
+    with SeedCapture() as cap:
+        cuda_build.reset_launches()
+        _, stats, _ = run_main_path("repeatrich", g1, g2)
+        launches = dict(cuda_build.LAUNCHES)
+    log(f"  launches[repeatrich]: {json.dumps(launches)}")
     if (stats["nlive"], stats["cov"]) != REPEAT_RICH_EXPECT:
         raise SystemExit(f"repeatrich: nlive {stats['nlive']} cov "
                          f"{stats['cov']}; expected {REPEAT_RICH_EXPECT}")
+    check_seeds("repeatrich", stats, REPEAT_RICH_SEEDS)
+    return launches, cap
 
 
 def phase_rescue():
@@ -497,14 +790,14 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
-    from fastga_tpu_torch.ops import wave_kernels as wk
+    from fastga_tpu_torch.ops import cuda_build
     from fastga_tpu_torch.ops.wave_ref import AlignSpec
     t0 = time.perf_counter()
-    wk.build_kernels()
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
-    for name in ("wave_chunk", "wave0", "backtrack_walk"):
-        p = os.path.join(os.path.dirname(wk.__file__), "..", "_build",
-                         name + ".ptxas.txt")
+    cuda_build.build_kernels()
+    log(f"kernel build ({len(KERNELS)} sources): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in KERNELS:
+        p = os.path.join(cuda_build.BUILD, name + ".ptxas.txt")
         if os.path.exists(p):
             for line in open(p).read().splitlines():
                 if "registers" in line or "spill" in line:
@@ -513,8 +806,10 @@ def main():
     spec = AlignSpec(0.7, 100, False, (0.25, 0.25, 0.25, 0.25))
     kern = phase_kernels(spec)
     phase_rescue()
-    launches = phase_uniform()
-    phase_repeatrich(REPEAT_RICH_MBP)
+    launches, cap_u = phase_uniform()
+    launches_rr, cap_rr = phase_repeatrich(REPEAT_RICH_MBP)
+    kern.update(phase_seed_kernels(cap_u, cap_rr))
+    del cap_u, cap_rr
     phase_exact()
     phase_profile()
 
@@ -525,7 +820,11 @@ def main():
             ("wave0", "fastga_tpu_torch/csrc/wave0.cu",
              "fastga_tpu/ops/wave_pallas.py:1071"),
             ("backtrack_walk", "fastga_tpu_torch/csrc/backtrack_walk.cu",
-             "fastga_tpu/ops/wave_pallas.py:954")):
+             "fastga_tpu/ops/wave_pallas.py:954"),
+            ("merge_path", "fastga_tpu_torch/csrc/merge_path.cu",
+             "fastga_tpu/ops/merge_pallas.py:204"),
+            ("fused_scan", "fastga_tpu_torch/csrc/fused_scan.cu",
+             "fastga_tpu/ops/scan_pallas.py:205")):
         k = kern[name]
         summary.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
@@ -533,6 +832,8 @@ def main():
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=None,
             equal=k["max_abs_err"] == 0))
+    log(f"launches (uniform / repeatrich): " + ", ".join(
+        f"{n} {launches[n]} / {launches_rr[n]}" for n in KERNELS))
     for row in summary:
         if not row["equal"] or row["launches"] <= 0 or row["ms"] is None:
             raise SystemExit(f"kernel row incomplete: {row}")

@@ -2,9 +2,10 @@
 tensors and back.
 
 The JAX package's "parameters" are its numpy state: the wave state tuple,
-tube arguments, packed sequence pools, TubeBatch columns, AlignSpec tables
-and GDB contig arrays.  Nothing of the JAX package is imported here: the
-functions take plain numpy arrays (or objects exposing them).
+tube arguments, packed sequence pools, TubeBatch columns, AlignSpec tables,
+GDB contig arrays, and the seed pipeline's entry tables, seeds and outputs.
+Nothing of the JAX package is imported here: the functions take plain numpy
+arrays (or objects exposing them).
 """
 
 from __future__ import annotations
@@ -91,3 +92,38 @@ def gdb_from_arrays(contigs: List[np.ndarray], names: List[str]) -> GDB:
     for s, nm in zip(g.scaffolds, names):
         s.header = nm
     return g
+
+
+def table_from_numpy(T: Sequence, device) -> tuple:
+    """A device entry table of the JAX seed pipeline, the 9-tuple (w0, w1,
+    w2, cont, post, comp, lcp, n, valid) with None slots, -> int32 tensors
+    (None stays None; the count n becomes a 0-d int64 tensor)."""
+    if len(T) != 9:
+        raise ValueError(f"expected a 9-entry table, got {len(T)}")
+    return tuple(
+        None if a is None
+        else (torch.tensor(int(np.asarray(a)), dtype=torch.int64,
+                           device=device) if i == 7 else _i32(a, device))
+        for i, a in enumerate(T))
+
+
+def seeds_from_numpy(seeds: Sequence[np.ndarray], device) -> tuple:
+    """(plen, acont, apost, bcont, bpost, bcomp) -> int32 tensors."""
+    if len(seeds) != 6:
+        raise ValueError(f"expected 6 seed columns, got {len(seeds)}")
+    return tuple(_i32(a, device) for a in seeds)
+
+
+def outputs_to_numpy(out: Sequence) -> tuple:
+    """A tuple of the seed pipeline's tensors (entry tables, merge_seeds
+    and chain_tubes_dev outputs) -> numpy arrays; 0-d counts become
+    Python ints and None stays None."""
+    res = []
+    for t in out:
+        if t is None:
+            res.append(None)
+            continue
+        a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+            else np.asarray(t)
+        res.append(int(a) if a.ndim == 0 else a)
+    return tuple(res)

@@ -1,8 +1,10 @@
 """FastGA pipeline driver: seeds -> tubes -> wave alignments -> dedup.
 
-Port of fastga_tpu/models/aligner.py in the host-seed configuration: the
-GIX tables, adaptamer seeds and chain sweep run on the host (io/gix,
-ops/merge, ops/chain); the per-tube anti-diagonal tiling loop around
+Port of fastga_tpu/models/aligner.py.  A two-genome comparison takes its
+tubes from the device seed pipeline (ops/device_pipeline.py: GIX tables,
+adaptamer merge and chain sweep on the card); self comparison, soft masking
+and the exact engine build them on the host (io/gix, ops/merge,
+ops/chain).  The per-tube anti-diagonal tiling loop around
 Local_Alignment (FastGA.c:3227-3341) feeds batches of tubes to the wave
 kernels on the card; then the per-contig-pair redundancy elimination
 (FastGA.c:3435-3694) and the deterministic (aread, abpos, bread, comp)
@@ -14,6 +16,7 @@ output order.
 
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -21,10 +24,12 @@ import numpy as np
 
 from ..io.alncode import Overlap
 from ..io.gdb import GDB
-from ..io.gix import build_gix
+from ..io.gix import _length_perm, build_gix
 from ..ops import chain as chainm
+from ..ops import device_pipeline as devp
 from ..ops import merge as mergem
 from ..ops import wave_ref
+from ..ops.constants import KMER
 from ..utils import dna, prof
 
 TSPACE = 100
@@ -70,7 +75,15 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
     adaptamer groups; same-contig forward tubes exclude the main
     diagonal).  ``cfg`` is the main wave engine's WaveConfig (default
     n=512, w=256, chunk=96, max_chunks=512, with an n=64 sibling for small
-    and long batches and the W=512/2048 rescue lanes)."""
+    and long batches and the W=512/2048 rescue lanes).
+
+    A two-genome comparison takes its tubes from the device seed pipeline
+    (ops/device_pipeline.py) on ``device``; self comparison, soft masking
+    and ``engine="ref"`` seed on the host.  An input the device pipeline
+    declines before uploading anything (a cap of the JAX package, e.g.
+    ``freq`` above 10) is printed on stderr and seeded on the host; a cap
+    exceeded on the device raises.  ``stats["seed_pipeline"]`` says which
+    ran."""
     if engine not in ("ref", "torch"):
         raise ValueError(f"unknown wave engine '{engine}' "
                          f"(expected 'ref' or 'torch')")
@@ -84,30 +97,58 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
     amax = int(lens1.max()) if len(lens1) else 1
     bmax = int(lens2.max()) if len(lens2) else 1
 
-    with prof.span("aligner.gix"):
-        t1 = build_gix(gdb1)
-        t2 = t1 if selfcmp else build_gix(gdb2)
-    perm1 = np.asarray(t1.perm)
-    perm2 = perm1 if selfcmp else np.asarray(t2.perm)
+    def _perm_of(lens):
+        # the host tables' contig order: descending length, padded with
+        # fake KMER-length contigs to 8 (build_gix's short-GDB fix)
+        lens_eff = np.concatenate(
+            [lens, np.full(max(0, 8 - len(lens)), KMER, np.int64)])
+        return np.asarray(_length_perm(lens_eff)[0])
+
+    perm1 = _perm_of(lens1)
+    perm2 = perm1 if selfcmp else _perm_of(lens2)
     # rank -> length (fake short-fix ranks map to their KMER length)
     alens_by_rank = np.where(perm1 < len(lens1), lens1[np.minimum(
-        perm1, len(lens1) - 1)], t1.kmer)
+        perm1, len(lens1) - 1)], KMER)
 
-    with prof.span("aligner.merge"):
-        if selfcmp:
-            seeds = mergem.self_adaptamer_seeds(
-                t1, freq=params.freq, soft_mask=params.soft_mask)
+    tubes = None
+    if engine == "torch" and not selfcmp and not params.soft_mask:
+        devp.DECLINE = None
+        with prof.span("aligner.devpipe"):
+            dres = devp.device_tubes(
+                gdb1, gdb2, alens_by_rank, freq=params.freq,
+                chain_break=params.chain_break, chain_min=params.chain_min,
+                device=dev)
+        if dres is not None:
+            tubes, nseeds, plsum = dres
+            stats["nseeds"] = nseeds
+            stats["seed_len_avg"] = (plsum / nseeds) if nseeds else 0.0
+            stats["seed_pipeline"] = "device"
         else:
-            seeds = mergem.adaptamer_seeds(
-                t1, t2, freq=params.freq, soft_mask=params.soft_mask)
-    stats["nseeds"] = seeds.n
-    stats["seed_len_avg"] = (float(seeds.plen.astype(np.float64).mean())
-                             if seeds.n else 0.0)
-    stats["seed_pipeline"] = "host"
-    with prof.span("aligner.chain"):
-        tubes = chainm.chain_tubes(seeds, amax, bmax, alens_by_rank,
-                                   chain_break=params.chain_break,
-                                   chain_min=params.chain_min)
+            # never silent: the reference takes any -f / contig count
+            reason = devp.DECLINE
+            sys.stderr.write(
+                f"fastga_tpu: device seed pipeline declined ({reason}); "
+                f"using host seed pipeline\n")
+            stats["seed_decline"] = reason
+    if tubes is None:
+        with prof.span("aligner.gix"):
+            t1 = build_gix(gdb1)
+            t2 = t1 if selfcmp else build_gix(gdb2)
+        with prof.span("aligner.merge"):
+            if selfcmp:
+                seeds = mergem.self_adaptamer_seeds(
+                    t1, freq=params.freq, soft_mask=params.soft_mask)
+            else:
+                seeds = mergem.adaptamer_seeds(
+                    t1, t2, freq=params.freq, soft_mask=params.soft_mask)
+        stats["nseeds"] = seeds.n
+        stats["seed_len_avg"] = (float(seeds.plen.astype(np.float64).mean())
+                                 if seeds.n else 0.0)
+        stats["seed_pipeline"] = "host"
+        with prof.span("aligner.chain"):
+            tubes = chainm.chain_tubes(seeds, amax, bmax, alens_by_rank,
+                                       chain_break=params.chain_break,
+                                       chain_min=params.chain_min)
     stats["nhits"] = tubes.n
 
     seq_cache: Dict[Tuple[int, int], np.ndarray] = {}

@@ -1,0 +1,1003 @@
+"""Device seed pipeline: GIX tables, adaptamer merge and chain sweep on the
+card.
+
+Port of fastga_tpu/ops/device_pipeline.py, the subset ``device_tubes`` runs
+for a pair of genomes: per-genome syncmer entry tables built from the packed
+bases (one sort whose keys carry the payload), the adaptamer merge of the
+driver table (genome 1, forward entries) against genome 2's full table as
+ONE combined stream (merge_kernels.merge_sorted_streams) with insertion
+ranks, neighbour LCPs and the reference's freq-capped group windows from
+fused scans (scan_kernels.fused_scan), the ragged seed expansion, and the
+bucket-pair chain sweep (a sort of the seeds, a merge with their shifted
+copies, segmented scans for every per-chain aggregate).  Only the tube
+arrays come back to the host; the counts are the only other host syncs.
+
+Semantics are those of the host path (ops/merge.py, ops/chain.py): the same
+TubeBatch, seed count and seed-length sum.  Caps are the JAX package's.  The
+checks that need nothing on the device (total bases, contig count, field
+widths, freq) decline with the JAX package's reasons: ``device_tubes``
+returns None and sets ``DECLINE``, and the caller seeds on the host.  A cap
+exceeded once the tables are on the device (GIX entries, seeds, tubes, a
+chain past its panels) raises RuntimeError: the work never moves back to
+the host.  The XLA sorts of the JAX pipeline are ``torch.sort`` here.  Self
+comparison, masked tables, the -S flip pass and the kmer-panel streaming
+are not ported (the aligner keeps the host seed path for them).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..io.gix import _length_perm
+from ..utils import prof
+from ..utils.dna import compress
+from .chain import TubeBatch
+from .constants import COMP, KMER, SOFF, TMAP, TMER
+from .merge_kernels import lexsort2, merge_sorted_streams
+from .scan_kernels import fused_scan
+from .wave_kernels import _i32
+
+F = 10  # adaptamer frequency cap (reference -f default; merge window cap)
+
+I64MAX = (1 << 63) - 1
+M32 = 0xFFFFFFFF
+
+NPREFIX = 1 << 24         # 24-bit kmer prefix space (panel granularity)
+MAX_CONT = 1 << 12        # contig-rank field width (reference envelope:
+MAX_POST = 1 << 28        # "at most several thousand contigs")
+MAX_FREQ = 10             # device freq cap (window-min packing: 6+3
+                          # six-bit values per value word); higher -f
+                          # takes the host merge
+
+# Why the last device_tubes call declined (returned None); the aligner
+# prints it on stderr and records it in stats, so cap-based host seeding is
+# never silent.
+DECLINE = None
+
+
+def _decline(reason):
+    global DECLINE
+    DECLINE = reason
+    return None
+
+
+def _over_cap(reason):
+    """A cap exceeded after the tables are on the device: fail the run."""
+    raise RuntimeError(f"device seed pipeline: {reason}")
+
+
+def _roll(x, s):
+    return torch.roll(x, s, 0)
+
+
+# ---------------------------------------------------------------------------
+# Section 1: GIX table arrays on the device
+# ---------------------------------------------------------------------------
+
+def entry_candidates(bases, loc, ln, cranks, in_block):
+    """Syncmer entry candidates for a run of positions.
+
+    bases: int32 [L] base codes (garbage across contig seams is fine: uses
+    are masked to in-contig windows); loc/ln: contig-relative position and
+    contig length per position; cranks: contig length-rank per position;
+    in_block: positions this caller owns.
+
+    Returns arrays of length 2L, forward slots then reverse-complement
+    slots: (ok, w0, w1, w2, cont, post, comp)."""
+    L = bases.shape[0]
+    dev = bases.device
+    kb = KMER // 4
+
+    b = bases.to(torch.int32)
+    n4 = (b << 6) | (_roll(b, -1) << 4) | (_roll(b, -2) << 2) | _roll(b, -3)
+    tmap = torch.as_tensor(TMAP.astype(np.int32), device=dev)
+    compt = torch.as_tensor(COMP.astype(np.int64), device=dev)
+    n4l = n4.to(torch.int64)
+    tf = tmap[n4l]
+    tc = tmap[compt[n4l]]
+    v = torch.minimum((tf << 8) | _roll(tf, -4), (_roll(tc, -4) << 8) | tc)
+
+    # closed-syncmer selection over valid 12-mer windows
+    m = v
+    for k in range(1, SOFF + 1):
+        m = torch.minimum(m, _roll(v, -k))
+    sel = (v == m) | (_roll(v, -SOFF) == m)
+    inctg = in_block & (loc + TMER <= ln) & (ln >= KMER)
+    sel = sel & inctg
+    fwd_ok = sel & (loc <= ln - KMER)
+    rc_ok = sel & (loc >= KMER - TMER)
+
+    # entry words from rolls of n4 (the rc entry ending at i+TMER-1 reads
+    # COMP[n4[i + 8 - 4t]], with COMP[b] == rev2bits(~b))
+    def comp_arith(x):
+        inv = (~x) & 0xFF
+        return (((inv & 0x03) << 6) | ((inv & 0x0C) << 2)
+                | ((inv & 0x30) >> 2) | ((inv & 0xC0) >> 6))
+
+    def words_from(bys):
+        bys = [t.to(torch.int64) for t in bys]
+        w0 = (bys[0] << 24) | (bys[1] << 16) | (bys[2] << 8) | bys[3]
+        w1 = (bys[4] << 24) | (bys[5] << 16) | (bys[6] << 8) | bys[7]
+        w2 = (bys[8] << 24) | (bys[9] << 16)
+        return _i32(w0), _i32(w1), _i32(w2)
+
+    fw0, fw1, fw2 = words_from([_roll(n4, -4 * t) for t in range(kb)])
+    cn4 = comp_arith(n4)
+    rw0, rw1, rw2 = words_from([_roll(cn4, -(8 - 4 * t)) for t in range(kb)])
+
+    zeros = torch.zeros(L, dtype=torch.int32, device=dev)
+    return (torch.cat([fwd_ok, rc_ok]), torch.cat([fw0, rw0]),
+            torch.cat([fw1, rw1]), torch.cat([fw2, rw2]),
+            torch.cat([cranks, cranks]), torch.cat([loc, loc + TMER]),
+            torch.cat([zeros, zeros + 1]))
+
+
+def _genome_candidates(bps, coff, clen, invp, ncontig):
+    """Per-position syncmer candidate arrays of one genome: the contig
+    geometry per position (contig, local offset, length, length-rank) comes
+    from the small contig tables by one scatter of contig starts and one
+    fill scan.  Returns the entry_candidates tuple (length 2N) and N."""
+    dev = bps.device
+    N = 4 * bps.shape[0]                     # padded base cap
+    Cpad = coff.shape[0]
+
+    i = torch.arange(N, dtype=torch.int32, device=dev)
+    b = bps.to(torch.int32)
+    bases = torch.stack([b & 3, (b >> 2) & 3, (b >> 4) & 3, (b >> 6) & 3],
+                        1).reshape(-1)
+
+    cvalid = torch.arange(Cpad, device=dev) < ncontig
+    starts = torch.where(cvalid, coff.to(torch.int64), N)
+    # index N is the dropped slot (padding contigs)
+    marks = torch.zeros(N + 1, dtype=torch.int32, device=dev).index_add_(
+        0, starts, torch.ones(Cpad, dtype=torch.int32, device=dev))[:N]
+    # the last contig continues past its end; length checks gate its
+    # positions
+    cont_of = torch.cumsum(marks, 0) - 1
+
+    def at_starts(vals):
+        """vals at their contigs' start positions, 0 elsewhere."""
+        z = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+        return z.scatter_reduce_(
+            0, starts, torch.where(cvalid, vals.to(torch.int64), 0), "amax",
+            include_self=True)[:N]
+
+    # each field filled forward from its contig's start
+    coff_at, ln, cranks = fused_scan(
+        [at_starts(x) for x in (coff, clen, invp)], (("last", 0),) * 3,
+        (marks,))
+    loc = i - coff_at
+    in_block = (cont_of >= 0) & (cont_of < ncontig)
+    return entry_candidates(bases, loc, ln, cranks, in_block), N
+
+
+def driver_candidates(bps, coff, clen, invp, ncontig):
+    """UNSORTED forward-slot entry stream of the merge's driver (genome 1):
+    (w0, w1, w2, cont, post, comp=0, lcp=None, nfwd, valid) in genome
+    position order with an explicit validity mask."""
+    (okflat, w0a, w1a, w2a, conta, posta, compa), N = \
+        _genome_candidates(bps, coff, clen, invp, ncontig)
+    ok = okflat[:N]
+    return (w0a[:N], w1a[:N], w2a[:N], conta[:N], posta[:N], compa[:N],
+            None, ok.sum(), ok.to(torch.int32))
+
+
+def gix_arrays(bps, coff, clen, invp, ncontig, ecap: int = 0):
+    """Sorted GIX entry arrays of one genome.
+
+    bps: uint8 [Npad/4] 2-bit packed bases (base i at bit 2*(i%4));
+    coff/clen: int32 [Cpad] contig base offsets/lengths (padding rows 0);
+    invp: int32 [Cpad] contig -> length-rank; ncontig: contig count.
+
+    Returns (w0, w1, w2, cont, post, comp, lcp, nentries, valid): entries
+    sorted by (kmer, cont, post, comp), padded to the position cap with
+    all-ones keys; w0/w1 = kmer bits 79..16, w2 = bits 15..0 << 16."""
+    (okflat, w0a, w1a, w2a, conta, posta, compa), N = \
+        _genome_candidates(bps, coff, clen, invp, ncontig)
+    # two packed int64 keys carry all entry data; payloads come back from
+    # the sorted keys
+    ka, kb = pack_entry_keys(okflat, w0a, w1a, w2a, conta, posta, compa)
+    o = lexsort2(ka, kb)
+    w0s, w1s, w2s, cs, ps, os_ = unpack_entry_keys(ka[o], kb[o])
+    nent = okflat.sum()
+    vs = (torch.arange(2 * N, device=bps.device) < nent).to(torch.int32)
+    lcp = adjacent_lcp(w0s, w1s, w2s)
+    out = (w0s, w1s, w2s, cs, ps, os_, lcp)
+    if ecap and ecap < 2 * N:
+        out = tuple(x[:ecap] for x in out)
+        vs = vs[:ecap]
+    return out + (nent, vs)
+
+
+def pack_entry_keys(ok, w0a, w1a, w2a, conta, posta, compa):
+    """Entry fields -> two int64 sort keys (MAX for invalid slots):
+    ka = the 64 high kmer bits (sign-centred), kb = [56:41] kmer bits
+    15..0, [40:29] cont, [28:1] post, [0] comp."""
+    w0u = _u32_64(w0a)
+    w1u = _u32_64(w1a)
+    w2_16 = _u32_64(w2a) >> 16
+    ka = (w0u - (1 << 31)) * (1 << 32) + w1u
+    kb = ((w2_16 << 41) | (conta.to(torch.int64) << 29)
+          | (posta.to(torch.int64) << 1) | compa.to(torch.int64))
+    return torch.where(ok, ka, I64MAX), torch.where(ok, kb, I64MAX)
+
+
+def unpack_entry_keys(kas, kbs):
+    """Inverse of pack_entry_keys -> (w0, w1, w2, cont, post, comp)."""
+    w0s = _i32(((kas >> 32) + (1 << 31)) & M32)
+    w1s = _i32(kas & M32)
+    w2s = _i32(((kbs >> 41) & 0xFFFF) << 16)
+    cs = ((kbs >> 29) & 0xFFF).to(torch.int32)
+    ps = ((kbs >> 1) & ((1 << 28) - 1)).to(torch.int32)
+    os_ = (kbs & 1).to(torch.int32)
+    return w0s, w1s, w2s, cs, ps, os_
+
+
+def _lz80(x0, x1, x2):
+    """Leading zero bits of the 80-bit XOR (x0, x1, x2 its 32-bit words)."""
+    return torch.where(x0 != 0, _clz32_arr(x0),
+                       torch.where(x1 != 0, 32 + _clz32_arr(x1),
+                                   64 + _clz32_arr(x2)))
+
+
+def adjacent_lcp(w0s, w1s, w2s):
+    """lcp[i] = base-lcp(row i-1, row i) over sorted 80-bit kmer words,
+    capped at KMER; lcp[0] = 0."""
+    lz = _lz80(w0s ^ _roll(w0s, 1), w1s ^ _roll(w1s, 1),
+               w2s ^ _roll(w2s, 1))
+    lcp = (lz >> 1).clamp(max=KMER).to(torch.int32)
+    lcp[0] = 0
+    return lcp
+
+
+def _clz32_arr(x):
+    """Leading zeros of the low 32 bits (int64 arithmetic: the CPU build of
+    torch has no uint32 shifts or compares)."""
+    xu = x.to(torch.int64) & M32
+    n_ = torch.zeros(xu.shape, dtype=torch.int32, device=xu.device)
+    y = xu
+    for sh in (16, 8, 4, 2, 1):
+        big = y >= (1 << sh)
+        n_ = torch.where(big, n_ + sh, n_)
+        y = torch.where(big, y >> sh, y)
+    return torch.where(xu == 0, 32, 31 - n_).to(torch.int32)
+
+
+def _u32_64(x):
+    """int32 -> its unsigned value as int64."""
+    return x.to(torch.int64) & M32
+
+
+def _seg_cumsum(x, start):
+    """Segmented cumulative sum (difference-of-prefix-sums trick), int64.
+    Valid while the global prefix sum stays below 2^36."""
+    x = x.to(torch.int64)
+    c = torch.cumsum(x, 0)
+    base = c - x
+    gid = torch.cumsum(start.to(torch.int64), 0) << 36
+    run = torch.cummax(torch.where(start, gid + base, 0), 0).values
+    return c - (run - gid)
+
+
+# ---------------------------------------------------------------------------
+# Section 2: adaptamer merge on the device (combined stream)
+# ---------------------------------------------------------------------------
+
+def _entry_keys(T, tag: int):
+    """(k1, k2, valid) int64 sort keys of one table's entries (MAX when
+    invalid).  k1 = 64 kmer bits; k2 = [62:47] kmer bits 15..0, [46] tag,
+    [45:34] cont, [33:6] post, [5] comp."""
+    w0, w1, w2, c, p, o, _l, n, vs = T
+    E = w0.shape[0]
+    # front-compacted tables mark validity by count; the unsorted driver
+    # candidates carry a slot mask
+    valid = ((torch.arange(E, device=w0.device) < n) if vs is None
+             else (vs != 0))
+    k1 = (_u32_64(w0) - (1 << 31)) * (1 << 32) + _u32_64(w1)
+    w2_16 = _u32_64(w2) >> 16
+    k2 = ((w2_16 << 47) | (tag << 46) | (c.to(torch.int64) << 34)
+          | (p.to(torch.int64) << 6) | (o.to(torch.int64) << 5))
+    return (torch.where(valid, k1, I64MAX), torch.where(valid, k2, I64MAX),
+            valid)
+
+
+def _window_mins(l2, n2, freq):
+    """T2-space rolling minima of the adjacent-lcp array: wup[u-1][j] =
+    min(l2c[j+1..j+u]) and wdn[u-1][j] = min(l2c[j-u+1..j]) for u = 1 ..
+    freq-1, with l2c = min(l2, KMER) masked to 0 outside [0, n2)."""
+    E = l2.shape[0]
+    iota = torch.arange(E, dtype=torch.int32, device=l2.device)
+    l2c = torch.where(iota < n2, l2.clamp(max=KMER), 0)
+    wup, wdn = [], []
+    cur_up = cur_dn = None
+    for u in range(1, freq):
+        r = torch.where(iota + u < E, _roll(l2c, -u), 0)
+        cur_up = r if cur_up is None else torch.minimum(cur_up, r)
+        wup.append(cur_up)
+        rd = torch.where(iota - (u - 1) >= 0, _roll(l2c, u - 1), 0)
+        cur_dn = rd if cur_dn is None else torch.minimum(cur_dn, rd)
+        wdn.append(cur_dn)
+    return wup, wdn
+
+
+def _pack6(vals, lo_count, E, device):
+    """Pack a list of 6-bit values into (lo, hi) int64 words."""
+    lo = torch.zeros(E, dtype=torch.int64, device=device)
+    hi = torch.zeros(E, dtype=torch.int64, device=device)
+    for i, v in enumerate(vals[:lo_count]):
+        lo = lo | (v.to(torch.int64) << (6 * i))
+    for i, v in enumerate(vals[lo_count:]):
+        hi = hi | (v.to(torch.int64) << (6 * i))
+    return lo, hi
+
+
+def merge_seeds(T1, T2, ns_cap: int, freq: int = F):
+    """Adaptamer seeds between two device tables, both sorted by the
+    composite entry key (kmer, cont, post, comp) with +MAX-tail validity
+    (the JAX package's ``presorted=True`` path, without masks or flip).
+
+    T1 (driver, forward entries drive) and T2 (members) merge into ONE
+    stream; insertion ranks, lcps to the nearest T2 rows and T2's window
+    minima transported to T1 rows come from one forward and one reverse
+    fused scan; non-driving T1 rows ride along with a dead bit.  Returns
+    (plen, acont, apost, bcont, bpost, bcomp, nseeds, nalive), rows at
+    index >= nseeds being padding, in the host's emission order."""
+    dev = T1[0].device
+    E1 = T1[0].shape[0]
+    E2 = T2[0].shape[0]
+    M = E1 + E2
+    n2 = T2[7]
+
+    k1a, k2a, val1 = _entry_keys(T1, 0)
+    k1b, k2b, _ = _entry_keys(T2, 1)
+    # only forward T1 entries drive the merge (FastGA.c:916-928); the others
+    # stay in place with a dead bit (payload bit 62) so T1 stays sorted
+    drive1 = val1 & (T1[5] == 0)
+    dead1 = (val1 & ~drive1).to(torch.int64)
+
+    # T2-space window minima, 6 bits each (lo = 6 values, hi = up to 3 more
+    # above bit 36), ride the merge as payload
+    wup, wdn = _window_mins(T2[6], n2, freq)
+    nlo = min(len(wup), 6)
+    up_lo2, up_hi2 = _pack6(wup, nlo, E2, dev)
+    dn_lo2, dn_hi2 = _pack6(wdn, nlo, E2, dev)
+    k1s, k2s, vups, vdns = merge_sorted_streams(
+        (k1a, k2a, dead1 << 62, torch.zeros(E1, dtype=torch.int64,
+                                            device=dev)),
+        (k1b, k2b, (up_hi2 << 36) | up_lo2, (dn_hi2 << 36) | dn_lo2))
+
+    valid = k2s != I64MAX
+    is2 = ((k2s >> 46) & 1).to(torch.bool) & valid
+    cont = ((k2s >> 34) & (MAX_CONT - 1)).to(torch.int32)
+    post = ((k2s >> 6) & (MAX_POST - 1)).to(torch.int32)
+    w2_16 = (k2s >> 47) & 0xFFFF
+
+    # adjacent-row lcp over the 80 kmer bits
+    w0u = ((k1s >> 32) + (1 << 31)) & M32
+    w1u = k1s & M32
+    lz = _lz80(w0u ^ _roll(w0u, 1), w1u ^ _roll(w1u, 1),
+               (w2_16 ^ _roll(w2_16, 1)) << 16)
+    ridx = torch.arange(M, dtype=torch.int32, device=dev)
+    alcp = (lz >> 1).clamp(max=KMER)
+    alcp = torch.where((ridx > 0) & valid & _roll(valid, 1), alcp, 0)
+
+    # one forward pass: T2 insertion ranks, pred-side segmented lcp minima
+    # and the T2 window words (18-bit planes) carried to following rows;
+    # one reverse pass for the succ-side equivalents
+    nalcp = _roll(alcp, -1)             # lcp(row i, row i+1)
+    is2i = is2.to(torch.int32)
+    startp = ((ridx == 0) | _roll(is2, 1)).to(torch.int32)
+    m18 = 0x3FFFF
+    m2cum32, nsegp, dn_p0, dn_p1, dn_p2 = fused_scan(
+        (is2i, -alcp, vdns & m18, (vdns >> 18) & m18, (vdns >> 36) & m18),
+        (("sum", None), ("max", 0), ("last", 1), ("last", 1), ("last", 1)),
+        (startp, is2i))
+    segmin_p = -nsegp
+    # reverse flag: reset at the nearest following T2 row
+    g_succ = torch.where(ridx == M - 1, 1, _roll(is2i, -1))
+    nsegs, up_p0, up_p1, up_p2 = fused_scan(
+        (-nalcp, vups & m18, (vups >> 18) & m18, (vups >> 36) & m18),
+        (("max", 0), ("last", 1), ("last", 1), ("last", 1)),
+        (g_succ, is2i), reverse=True)
+    segmin_s = -nsegs
+    ins = m2cum32 - is2i
+    n2_after = n2.to(torch.int32) - m2cum32
+    lcp_pred = torch.where(ins > 0, segmin_p, -1)
+    lcp_succ = torch.where(n2_after > 0, segmin_s, -1)
+
+    plen = torch.maximum(lcp_pred, lcp_succ)
+    alive0 = (~is2) & valid & (plen >= 12) & (((vups >> 62) & 1) == 0)
+    up0 = (lcp_succ >= plen) & (n2_after > 0) & alive0
+    dn0 = (lcp_pred >= plen) & (ins > 0) & alive0
+
+    def win_ok_counts(planes):
+        # three packed 6-bit values per 18-bit plane, from bit 0 on
+        cnt = torch.zeros(M, dtype=torch.int32, device=dev)
+        for u in range(1, freq):
+            pi, off = divmod(u - 1, 3)
+            wv = (planes[pi] >> (6 * off)) & 63
+            cnt = cnt + (wv >= plen).to(torch.int32)
+        return cnt
+
+    upc = torch.where(up0, 1 + win_ok_counts((up_p0, up_p1, up_p2)), 0)
+    dnc = torch.where(dn0, 1 + win_ok_counts((dn_p0, dn_p1, dn_p2)), 0)
+    count = upc + dnc
+    alive = alive0 & (count < freq)
+    cnt = torch.where(alive, count, 0).to(torch.int64)
+
+    # ragged expansion directly over the merged stream: per-seed owner rows
+    # from a scatter-max of row indices at each owner's first slot plus a
+    # forward fill (owners appear in increasing row order)
+    v1 = ((plen.to(torch.int64) << 40) | (cont.to(torch.int64) << 28)
+          | post.to(torch.int64))
+    y0 = ins - dnc
+    nalive = alive.sum()
+    cum_incl = torch.cumsum(cnt, 0)     # nseeds < 2^31
+    cum_excl = cum_incl - cnt
+    nseeds = cum_incl[M - 1]
+    # starts past the cap are dropped (scatter only the alive rows below it)
+    own = alive & (cum_excl < ns_cap)
+    row0 = torch.full((ns_cap,), -1, dtype=torch.int64,
+                      device=dev).scatter_reduce_(
+        0, cum_excl[own], ridx[own].to(torch.int64), "amax",
+        include_self=True)
+    sidx = torch.arange(ns_cap, dtype=torch.int32, device=dev)
+    # the owner row fills forward (a running max), and so does the owner's
+    # first slot (from the marked slots)
+    rowf, start_slot = fused_scan((row0, sidx),
+                                  (("max", None), ("last", 0)),
+                                  ((row0 >= 0).to(torch.int32),))
+    ec = rowf.clamp(0, M - 1)
+    g1 = v1[ec]
+    y = y0[ec] + (sidx - start_slot)
+    yc = y.clamp(0, E2 - 1).to(torch.int64)
+    t2pack = ((T2[4].to(torch.int64) << 19) | (T2[3].to(torch.int64) << 7)
+              | (T2[5].to(torch.int64) << 6))
+    tg = t2pack[yc]
+
+    pl = ((g1 >> 40) & 63).to(torch.int32)
+    ac = ((g1 >> 28) & (MAX_CONT - 1)).to(torch.int32)
+    ap = (g1 & (MAX_POST - 1)).to(torch.int32)
+    bp = (tg >> 19).to(torch.int32)
+    bc = ((tg >> 7) & (MAX_CONT - 1)).to(torch.int32)
+    bo = ((tg >> 6) & 1).to(torch.int32)
+    return pl, ac, ap, bc, bp, bo, nseeds, nalive
+
+
+def _merge_seeds_sum(T1, T2, nscap: int, freq: int = F):
+    """merge_seeds plus the seed-length sum over the valid prefix:
+    (plen, acont, apost, bcont, bpost, bcomp, nseeds, nalive, plsum)."""
+    pl, ac, ap, bc, bp, bo, ns, nalive = merge_seeds(T1, T2, nscap, freq)
+    sidx = torch.arange(nscap, device=pl.device)
+    plsum = torch.where(sidx < ns, pl, 0).sum()
+    return pl, ac, ap, bc, bp, bo, ns, nalive, plsum
+
+
+# ---------------------------------------------------------------------------
+# Section 3: chain sweep on the device (payload in the keys, scan aggregates)
+# ---------------------------------------------------------------------------
+
+BUCK_SHIFT = 6
+BUCK_WIDTH = 1 << BUCK_SHIFT
+
+_POFF = 1 << 25      # pairing field offset (pairing >= -1)
+
+
+def chain_tubes_dev(seeds, ns, amax: int, bmax: int, alens_by_rank,
+                    tcap: int, chain_break: int = 2000,
+                    chain_min: int = 170):
+    """Bucket-pair chain sweep (port of ops/chain.chain_tubes).  ``seeds``
+    = (plen, acont, apost, bcont, bpost, bcomp) tensors of length NS
+    (valid rows < ns); ``alens_by_rank`` an int32 tensor.  Returns tube
+    arrays capped at tcap rows (acont, bcont, comp, dgmin, dgmax, alow,
+    ahgh, pairing, cov) and the tube count, in host emission order."""
+    plen, acont, apost, bcont, bpost, bcomp = seeds
+    dev = plen.device
+    NS = plen.shape[0]
+    M2 = 2 * NS
+    big = 1 << 30
+    i32 = torch.int32
+    i64 = torch.int64
+
+    ip = apost.to(i32)
+    jp = bpost.to(i32)
+    maxdag = amax + bmax
+    bcf = bcomp.to(i32) != 0
+    diag = torch.where(bcf, maxdag - (ip + jp), bmax + (ip - jp))
+    anti = torch.where(bcf, amax - (ip - jp), ip + jp)
+    dbuck = diag >> BUCK_SHIFT
+    drem = diag - (dbuck << BUCK_SHIFT)
+    lcp2 = plen.to(i32) << 1
+
+    sidx = torch.arange(NS, dtype=i32, device=dev)
+    svalid = sidx < ns
+
+    # Every seed takes part in two bucket pairings: (dbuck, tag 0) and
+    # (dbuck-1, tag 1).  The upper copy's keys are exact monotone transforms
+    # of the lower copy's, so ONE sort of NS rows and a merge of the two
+    # derived sorted streams equal the 2NS-row sort (keys are unique through
+    # the seed-index tie-break).
+    k1l = ((acont.to(i64) << 39) | (bcont.to(i64) << 27)
+           | (bcf.to(i64) << 26) | (dbuck.to(i64) + _POFF))
+    k2l = (anti.to(i64) << 28) | sidx.to(i64)
+    vBl = (drem.to(i64) << 8) | lcp2.to(i64)
+    k1l = torch.where(svalid, k1l, I64MAX)
+    k2l = torch.where(svalid, k2l, I64MAX)
+    vBl = torch.where(svalid, vBl, 0)
+    o = lexsort2(k1l, k2l)
+    k1ls, k2ls, vBls = k1l[o], k2l[o], vBl[o]
+    lvalid = k1ls != I64MAX
+    k1u = torch.where(lvalid, k1ls - 1, I64MAX)
+    k2u = torch.where(lvalid, k2ls + ((1 << 27) + NS), I64MAX)
+    vBu = vBls + (BUCK_WIDTH << 8)
+    k1s, k2s, vBs = merge_sorted_streams((k1ls, k2ls, vBls), (k1u, k2u, vBu))
+
+    valid = k1s != I64MAX
+    aa = torch.where(valid, k2s >> 28, 0).to(i32)
+    tag = ((k2s >> 27) & 1).to(i32)
+    dg = ((vBs >> 8) & 0xFF).to(i32)
+    ll = (vBs & 0xFF).to(i32)
+
+    ridx = torch.arange(M2, dtype=i32, device=dev)
+    pk1 = _roll(k1s, 1)
+    gmask = (-1 << 26) & I64MAX
+    same_g = (k1s & gmask) == (pk1 & gmask)
+    seg = (ridx == 0) | (k1s != pk1)   # group+pairing segment = k1 segment
+    seg_end = _roll(seg, -1) | (ridx == M2 - 1)
+    same_prev = (ridx > 0) & same_g & (k1s == pk1 + 1)
+    segf = seg.to(i32)
+    run0, run1 = fused_scan(((valid & (tag == 0)).to(i32),
+                             (valid & (tag == 1)).to(i32)),
+                            (("max", 0), ("max", 0)), (segf,))
+    # the row before a segment start is the previous segment's END row,
+    # where the forward scan holds that whole segment's OR
+    prev_has_lower = (_roll(run0, 1) != 0) & (ridx > 0)
+    prev_adj_row = (seg & same_prev & prev_has_lower).to(i32)
+    # constant per segment, set at its start: a forward fill
+    prev_adjacent = fused_scan((prev_adj_row,), (("last", 0),),
+                               (segf,))[0] != 0
+    bf0, bf1 = fused_scan((torch.where(seg_end, run0, -1),
+                           torch.where(seg_end, run1, -1)),
+                          (("max", 0), ("max", 0)), (seg_end.to(i32),),
+                          reverse=True)
+    has_lower = bf0 != 0
+    has_upper = bf1 != 0
+
+    examine = has_lower & (~prev_adjacent | has_upper)
+    new_row = (~prev_adjacent).to(i32)
+    keep_entry = examine & valid
+
+    # stable compaction of the kept rows; payload packed into the values
+    kcomp = ((~keep_entry).to(i64) << 58) | ridx.to(i64)
+    vA = k1s & ((1 << 52) - 1)       # ga|gb|gc|pairing'
+    vB2 = ((aa.to(i64) << 20) | (dg.to(i64) << 12) | (ll.to(i64) << 4)
+           | (seg.to(i64) << 3) | (new_row.to(i64) << 2)
+           | (tag.to(i64) << 1) | keep_entry.to(i64))
+    o = torch.sort(kcomp).indices
+    vAc = torch.where(keep_entry, vA, 0)[o]
+    vBc = torch.where(keep_entry, vB2, 0)[o]
+    ga = ((vAc >> 39) & (MAX_CONT - 1)).to(i32)
+    gb = ((vAc >> 27) & (MAX_CONT - 1)).to(i32)
+    gc = ((vAc >> 26) & 1).to(i32)
+    pairing = ((vAc & (_POFF * 2 - 1)) - _POFF).to(i32)
+    aa = (vBc >> 20).to(i32)
+    dg = ((vBc >> 12) & 0xFF).to(i32)
+    ll = ((vBc >> 4) & 0xFF).to(i32)
+    new_row = ((vBc >> 2) & 1).to(i32)
+    tag = ((vBc >> 1) & 1).to(i32)
+    valid = (vBc & 1).to(torch.bool)
+    seg = ((vBc >> 3) & 1).to(torch.bool) | (ridx == 0)
+
+    # chain segmentation with the two-sided break test
+    cps = aa + ll
+
+    def segmax1(x, f):
+        return fused_scan((x,), (("max", 0),), (f.to(i32),))[0]
+
+    if chain_break >= 256:
+        # Closed form (no fixpoint).  Within a segment aa is non-decreasing
+        # and ll <= 255, so with chain_break >= 256 two entries within 255
+        # aa units never break apart and any older entry is dominated: the
+        # running chain max at entry i is the max cps over entries with
+        # aa > aa_{i-1} - 256, i.e. a prefix max within 256-wide aa bins
+        # joined with the previous bin's full max.
+        binb = seg | ((ridx > 0) & ((aa >> 8) != _roll(aa >> 8, 1)))
+        pbin = segmax1(torch.where(valid, cps, -big), binb)
+        prevb = torch.where(binb & ~seg, _roll(pbin, 1), -big)
+        prevf = segmax1(prevb, binb)
+        WMp = _roll(torch.maximum(pbin, prevf), 1)
+        brk = seg | (~seg & valid & (aa >= WMp + chain_break))
+    else:
+        Mx = segmax1(cps, seg)
+        inner = ~seg & valid
+        definite = inner & (aa >= _roll(Mx, 1) + chain_break)
+        never = inner & (aa < _roll(cps, 1) + chain_break)
+        amb = inner & ~definite & ~never
+        brk = seg | definite
+        while True:      # exact fixpoint over the ambiguous gaps
+            Mc = segmax1(cps, brk)
+            nb = brk | (amb & (aa >= _roll(Mc, 1) + chain_break))
+            changed = bool((nb != brk).any())
+            brk = nb
+            if not changed:
+                break
+
+    # per-chain aggregates: one 13-channel forward scan, values at chain
+    # ends
+    ch_end = _roll(brk, -1) | (ridx == M2 - 1)
+    agg_vals = (
+        torch.where(valid, -dg, -big),          # min via negation
+        torch.where(valid, dg, -big),
+        torch.where(valid, cps, -big),
+        (valid & (tag == 0)).to(i32),
+        (valid & (tag == 1)).to(i32),
+        valid.to(i32))
+    first_vals = tuple(torch.where(brk, x, -1)
+                       for x in (ga, gb, gc, pairing + (1 << 25), new_row,
+                                 aa))
+    outs = fused_scan((cps,) + agg_vals + first_vals, (("max", 0),) * 13,
+                      (brk.to(i32),))
+    ahgh_run, run, f_run = outs[0], outs[1:7], outs[7:13]
+    prev_ahgh = torch.where(ridx == 0, 0, _roll(ahgh_run, 1))
+    novel = torch.where(brk, ll,
+                        torch.minimum(cps - prev_ahgh, ll).clamp(min=0))
+    novel = torch.where(valid, novel, 0)
+    # segmented coverage sum: int32 is safe while 255 * M2 fits (novel <=
+    # 255 per row)
+    if 255 * M2 < (1 << 31):
+        cov = fused_scan((novel,), (("sum", 0),), (brk.to(i32),))[0]
+    else:
+        cov = _seg_cumsum(novel, brk)
+
+    ch_dgmin = -run[0]
+    ch_dgmax, ch_ahgh = run[1], run[2]
+    ch_mix_l, ch_mix_u, ch_valid = run[3] != 0, run[4] != 0, run[5] != 0
+    ch_ga, ch_gb, ch_gc = f_run[0], f_run[1], f_run[2]
+    ch_pair = f_run[3] - (1 << 25)
+    ch_new = f_run[4] != 0
+    ch_alow = f_run[5]
+
+    keep = (ch_valid & (cov >= chain_min)
+            & (~(ch_mix_l & ~ch_mix_u) | ch_new) & ch_end)
+
+    # compact the kept chains (in chain order) to tcap; tuples packed
+    c1 = ((ch_ga.to(i64) << 39) | (ch_gb.to(i64) << 27)
+          | (ch_gc.to(i64) << 26) | (ch_pair.to(i64) + _POFF))
+    c2 = ((ch_alow.to(i64) << 15) | (ch_dgmax.to(i64) << 7)
+          | ch_dgmin.to(i64))
+    # cov rides c3's high bits: the per-chain seed coverage is the wave
+    # scheduler's wave-count predictor
+    c3 = (cov.to(i64) << 31) | ch_ahgh.to(i64)
+    kk = ((~keep).to(i64) << 58) | ridx.to(i64)
+    o = torch.sort(kk).indices[:tcap]
+    c1o = torch.where(keep, c1, 0)[o]
+    c2o = torch.where(keep, c2, 0)[o]
+    c3o = torch.where(keep, c3, 0)[o]
+    ntubes = keep.sum()
+
+    o_ga = ((c1o >> 39) & (MAX_CONT - 1)).to(i32)
+    o_gb = ((c1o >> 27) & (MAX_CONT - 1)).to(i32)
+    o_gc = ((c1o >> 26) & 1).to(i32)
+    o_pair = ((c1o & (_POFF * 2 - 1)) - _POFF).to(i32)
+    o_alow = (c2o >> 15).to(i32)
+    o_dgmax = ((c2o >> 7) & 0xFF).to(i32)
+    o_dgmin = (c2o & 0x7F).to(i32)
+    o_cov = (c3o >> 31).to(i32)
+    o_ahgh = (c3o & ((1 << 31) - 1)).to(i32)
+
+    # contig-coordinate conversion (a tcap-sized gather of the small table)
+    alen = alens_by_rank[o_ga.clamp(0, alens_by_rank.shape[0] - 1).to(i64)]
+    dgmin = o_dgmin + (o_pair << BUCK_SHIFT)
+    dgmax = o_dgmax + (o_pair << BUCK_SHIFT)
+    is_c = o_gc != 0
+    dgmin = torch.where(is_c, dgmin + (alen - maxdag), dgmin - bmax)
+    dgmax = torch.where(is_c, dgmax + (alen - maxdag), dgmax - bmax)
+    alow = torch.where(is_c, o_alow + (alen - amax), o_alow)
+    ahgh = torch.where(is_c, o_ahgh + (alen - amax), o_ahgh)
+    return (o_ga, o_gb, is_c, dgmin, dgmax, alow, ahgh, o_pair, o_cov,
+            ntubes)
+
+
+# ---------------------------------------------------------------------------
+# Wrapper: GDB pair -> TubeBatch (None with DECLINE set before any upload)
+# ---------------------------------------------------------------------------
+
+# The JAX package's caps, sized for a 16 GB device and kept as they are so
+# that both packages decline the same inputs.
+_MAX_DEV_BASES = (1 << 26) + (1 << 25)   # single-shot bases per genome
+_CACHE_MAX_N = 1 << 25                   # largest padded genome cached
+CHAIN_DEV_CAP = 3 << 23                  # largest monolithic seed bucket
+CHAIN_PANEL_MAX = CHAIN_DEV_CAP * 6      # largest paneled seed bucket
+
+
+def _tcap_for(nscap: int, tcap: int) -> int:
+    """Tube-output cap scaled to the seed cap (tcap only sizes the output
+    compaction, so a generous cap is nearly free)."""
+    return min(max(int(tcap), _pad_bucket(nscap // 96)), 1 << 22)
+
+
+def _pad_bucket(n: int) -> int:
+    """Smallest cap >= n from {2^k, 1.5*2^k}."""
+    n = max(int(n), 1 << 12)
+    p = 1 << (n - 1).bit_length()
+    if n <= (p >> 1) + (p >> 2):
+        return (p >> 1) + (p >> 2)
+    return p
+
+
+def _prep_genome(gdb, lens, device):
+    """Packed bases and contig tables of one genome on ``device``:
+    (bps, coff, clen, invp, ncontig, N)."""
+    coff = np.zeros(len(lens), np.int64)
+    if len(lens) > 1:
+        coff[1:] = np.cumsum(lens)[:-1]
+    total = int(lens.sum())
+    N = _pad_bucket(total)
+    if (np.asarray(lens) % 4 == 0).all() and N % 4 == 0:
+        # byte-aligned contigs: concatenate the .bps slices
+        packed_all = gdb._packed()
+        bps = np.zeros(N // 4, np.uint8)
+        o = 0
+        for c in gdb.contigs:
+            nb = c.clen // 4
+            bps[o:o + nb] = packed_all[c.boff:c.boff + nb]
+            o += nb
+    else:
+        # contig boundaries inside a byte: unpack and repack
+        basespad = np.zeros(N, np.uint8)
+        pos = 0
+        for r in range(gdb.ncontig):
+            c = gdb.get_contig(r)
+            basespad[pos:pos + len(c)] = c
+            pos += len(c)
+        bps = compress(basespad)
+    lens_eff = np.concatenate(
+        [lens, np.full(max(0, 8 - len(lens)), KMER, np.int64)])
+    _, invp = _length_perm(lens_eff)
+    Cpad = 1 << max(3, (len(lens) - 1).bit_length())
+    tabs = np.zeros((3, Cpad), np.int32)
+    tabs[0, :len(lens)] = coff
+    tabs[1, :len(lens)] = lens
+    tabs[2, :len(lens)] = invp[:len(lens)]
+    t = torch.as_tensor(tabs, device=device)
+    return (torch.as_tensor(bps, device=device), t[0], t[1], t[2],
+            len(lens), N)
+
+
+def driver_table(C, ecap: int):
+    """Compact the unsorted driver candidates into a sorted table of ecap
+    rows (one sort whose keys fully order the forward entries)."""
+    w0a, w1a, w2a, ca, pa, oa, _l, nf, vs = C
+    ka, kb = pack_entry_keys(vs != 0, w0a, w1a, w2a, ca, pa, oa)
+    o = lexsort2(ka, kb)[:ecap]
+    return unpack_entry_keys(ka[o], kb[o]) + (None, nf, None)
+
+
+def _dev_cache(gdb, N, device):
+    """Per-GDB, per-device cache of the seed phase's device tables (the
+    analog of the reference's persisted .gix); genomes above _CACHE_MAX_N
+    padded bases are not cached."""
+    if N > _CACHE_MAX_N:
+        return {}
+    caches = getattr(gdb, "_fastga_torch_dev_cache", None)
+    if caches is None:
+        caches = gdb._fastga_torch_dev_cache = {}
+    return caches.setdefault(str(device), {})
+
+
+def _seedsort(pl, ac, ap, bcn, bp, bo, ns, Cpad):
+    """Stable acont-major sort of the seed stream (payload packed into two
+    value words), padded by one panel, and the per-contig panel
+    boundaries."""
+    NS = pl.shape[0]
+    dev = pl.device
+    idx = torch.arange(NS, dtype=torch.int64, device=dev)
+    valid = idx < ns
+    k = torch.where(valid, (ac.to(torch.int64) << 34) | idx, I64MAX)
+    v1 = ((pl.to(torch.int64) << 56) | (ap.to(torch.int64) << 28)
+          | bp.to(torch.int64))
+    v2 = (bcn.to(torch.int64) << 1) | bo.to(torch.int64)
+    o = torch.sort(k).indices
+    ks = k[o]
+    achi = torch.where(ks == I64MAX, MAX_CONT, ks >> 34)
+    bounds = torch.searchsorted(
+        achi, torch.arange(Cpad + 1, dtype=torch.int64, device=dev))
+    # one panel of tail padding, so every panel window has its full size
+    zpad = torch.zeros(CHAIN_DEV_CAP, dtype=torch.int64, device=dev)
+    return (torch.cat([ks, zpad + I64MAX]),
+            torch.cat([torch.where(valid, v1, 0)[o], zpad]),
+            torch.cat([torch.where(valid, v2, 0)[o], zpad]), bounds)
+
+
+def _chain_panel(k, v1, v2, off, npan, CAP, amax, bmax, alens, tcap,
+                 chain_break, chain_min):
+    """Chain sweep over one acont-contiguous panel of the sorted packed
+    seed stream."""
+    ks, v1s, v2s = (x[off:off + CAP] for x in (k, v1, v2))
+    seeds = ((v1s >> 56).to(torch.int32),
+             ((ks >> 34) & (MAX_CONT - 1)).to(torch.int32),
+             ((v1s >> 28) & (MAX_POST - 1)).to(torch.int32),
+             (v2s >> 1).to(torch.int32),
+             (v1s & (MAX_POST - 1)).to(torch.int32),
+             (v2s & 1).to(torch.int32))
+    return chain_tubes_dev(seeds, npan, amax, bmax, alens, tcap,
+                           chain_break, chain_min)
+
+
+def _numpy(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _run_chain_paneled(seeds6, ns_host, tcap, chain_break, chain_min, amax,
+                       bmax, alens_pad):
+    """Device chain sweep past the monolithic cap: one stable acont-major
+    sort, then sweeps over contiguous A-contig ranges (chains never cross an
+    A-contig and the sweep's primary key is the A-contig, so the panels'
+    concatenation is the monolithic sweep's output).  Returns host tube
+    arrays and the tube count; a panel past ``tcap`` keeps its first tcap
+    tubes and counts them all, so the caller reruns at a larger cap.
+    Raises when one contig's seeds exceed a panel."""
+    cap = min(_pad_bucket(max(ns_host, 1 << 13)), seeds6[0].shape[0])
+    k, v1, v2, bounds = _seedsort(*(x[:cap] for x in seeds6), ns_host,
+                                  alens_pad.shape[0])
+    bounds = bounds.cpu().numpy()
+    # greedy panels: the largest contig boundary within PANEL of the start
+    PANEL = CHAIN_DEV_CAP // 2
+    panels = []
+    start = 0
+    while start < ns_host:
+        hi = int(np.searchsorted(bounds, start + PANEL, side="right")) - 1
+        end = int(bounds[hi])
+        if end <= start:
+            _over_cap("chain: one contig's seeds exceed the device panel")
+        panels.append((start, min(end, ns_host)))
+        start = end
+    outs = []
+    total = 0
+    for off, end in panels:
+        res = [_numpy(x) for x in _chain_panel(
+            k, v1, v2, off, end - off, PANEL, amax, bmax, alens_pad, tcap,
+            chain_break, chain_min)]
+        nt = int(res[9])
+        outs.append([x[:nt] for x in res[:9]])
+        total += nt
+    if not outs:
+        return tuple([np.zeros(0, np.int64)] * 9) + (np.int64(0),)
+    return (tuple(np.concatenate([o[i] for o in outs]) for i in range(9))
+            + (np.int64(total),))
+
+
+def _run_chain(seeds_out, nscap, tcap, chain_break, chain_min, amax, bmax,
+               alens_by_rank, device):
+    """The chain sweep over the merge's seeds: monolithic on the device up
+    to CHAIN_DEV_CAP seeds (sliced to the seeds' own bucket), paneled up to
+    CHAIN_PANEL_MAX; more seeds raise.  Returns (tube arrays, ns, nalive,
+    plsum)."""
+    pl, ac, ap, bcn, bp, bo, ns, nalive, plsum = seeds_out
+    alens_pad = np.zeros(1 << max(3, (len(alens_by_rank) - 1).bit_length()),
+                         np.int32)
+    alens_pad[:len(alens_by_rank)] = alens_by_rank
+    alens_dev = torch.as_tensor(alens_pad, device=device)
+    ns_host = int(ns)
+    cap = _pad_bucket(max(ns_host, 1 << 13))
+    seeds6 = (pl, ac, ap, bcn, bp, bo)
+    if cap > CHAIN_PANEL_MAX:
+        _over_cap(f"chain: {ns_host} seeds exceed the paneled sweep's cap "
+                  f"{CHAIN_PANEL_MAX}")
+    if cap > CHAIN_DEV_CAP:
+        res = _run_chain_paneled(seeds6, ns_host, tcap, chain_break,
+                                 chain_min, amax, bmax, alens_dev)
+        return res, ns, nalive, plsum
+    if cap < nscap:
+        seeds6 = tuple(x[:cap] for x in seeds6)
+    res = chain_tubes_dev(seeds6, ns, amax, bmax, alens_dev, tcap,
+                          chain_break, chain_min)
+    return res, ns, nalive, plsum
+
+
+def _finish_tubes(res, ns, nalive, plsum, nscap, acap, extra_checks):
+    """Tube arrays -> (TubeBatch, nseeds, plsum); raises when a cap was
+    exceeded."""
+    (ga, gb, gc, dgmin, dgmax, alow, ahgh, pair, cov, nt) = \
+        [_numpy(x) for x in res]
+    ns, nalive, plsum = int(ns), int(nalive), int(plsum)
+    # the tube overflow test is against the emitted length
+    if ns > nscap or nalive > acap or int(nt) > len(ga) or extra_checks():
+        _over_cap("seed/tube caps exceeded")
+    n = int(nt)
+    tubes = TubeBatch(
+        acont=ga[:n].astype(np.int32), bcont=gb[:n].astype(np.int32),
+        comp=gc[:n].astype(bool), dgmin=dgmin[:n].astype(np.int32),
+        dgmax=dgmax[:n].astype(np.int32), alow=alow[:n].astype(np.int64),
+        ahgh=ahgh[:n].astype(np.int64), pairing=pair[:n].astype(np.int64),
+        cov=cov[:n].astype(np.int64))
+    return tubes, ns, plsum
+
+
+def device_tubes(gdb1, gdb2, alens_by_rank, freq: int = 10,
+                 chain_break: int = 2000, chain_min: int = 170,
+                 tcap: int = 1 << 15, device=None):
+    """TubeBatch of a genome pair from the device pipeline on ``device``
+    (default: the card): (tubes, nseeds, plsum), or None with DECLINE set
+    when the input exceeds a cap or field width checked before any upload.
+    A cap exceeded on the device raises RuntimeError."""
+    dev = torch.device("cuda" if device is None else device)
+    lens1 = gdb1.contig_lengths()
+    lens2 = gdb2.contig_lengths()
+    tot = int(lens1.sum()) + int(lens2.sum())
+    if tot == 0 or int(lens1.sum()) > _MAX_DEV_BASES \
+            or int(lens2.sum()) > _MAX_DEV_BASES:
+        return _decline("genome exceeds single-shot device bases")
+    if len(lens1) >= MAX_CONT or len(lens2) >= MAX_CONT:
+        return _decline(f">= {MAX_CONT} contigs")
+    amax, bmax = int(lens1.max()), int(lens2.max())
+    if amax + 2 * bmax >= (1 << 30) or max(amax, bmax) >= MAX_POST:
+        return _decline("contig length exceeds device field width")
+    if freq > MAX_FREQ:
+        return _decline(f"-f {freq} > device merge cap {MAX_FREQ}")
+
+    N1 = _pad_bucket(int(lens1.sum()))
+    N2 = _pad_bucket(int(lens2.sum()))
+    cache1 = _dev_cache(gdb1, N1, dev)
+    cache2 = _dev_cache(gdb2, N2, dev)
+    # seed/alive caps track the genome size: seed fan-out per driving entry
+    # is up to freq
+    NSCAP_FULL = max(N1, 1 << 13)
+    # a repeated run of the same pair sizes the expansion from the previous
+    # seed count; an overflow of that tight cap retries at the full cap
+    est_key = ("ns_est", N1, N2, freq)
+    est = cache1.get(est_key)
+    NSCAP = (min(_pad_bucket(max(est + (est >> 2), 1 << 13)), NSCAP_FULL)
+             if est is not None else NSCAP_FULL)
+    ACAP = max(N1 // 2, 1 << 12)
+
+    with prof.span("devpipe.gix1", dev):
+        T1 = cache1.get(("drv", N1))
+        if T1 is None:
+            # unsorted forward candidates -> count -> tight sorted driver
+            # table (one half-size sort; cached per GDB)
+            bps, coff, clen, invp, nc, _ = _prep_genome(gdb1, lens1, dev)
+            C1 = driver_candidates(bps, coff, clen, invp, nc)
+            T1 = driver_table(C1, min(_pad_bucket(int(C1[7])), N1))
+            cache1[("drv", N1)] = T1
+    E1 = T1[0].shape[0]
+    with prof.span("devpipe.gix2", dev):
+        T2 = cache2.get(("tab", N2))
+        if T2 is None:
+            bps, coff, clen, invp, nc, _ = _prep_genome(gdb2, lens2, dev)
+            Ef = max(1 << 12, N2)
+            Tf = gix_arrays(bps, coff, clen, invp, nc, ecap=Ef)
+            ne = int(Tf[7])
+            if ne > Ef:
+                _over_cap("GIX entry cap exceeded")
+            Et = min(_pad_bucket(ne), Ef)
+            T2 = tuple(x[:Et] for x in Tf[:7]) + (Tf[7], Tf[8][:Et])
+            cache2[("tab", N2)] = T2
+    E2 = T2[0].shape[0]
+    with prof.span("devpipe.merge", dev):
+        caps = [NSCAP] + ([NSCAP_FULL] if NSCAP < NSCAP_FULL else [])
+        for ci, nscap_try in enumerate(caps):
+            mout = _merge_seeds_sum(T1, T2, nscap_try, freq)
+            ns_host = int(mout[6])
+            if ns_host <= nscap_try or ci + 1 == len(caps):
+                NSCAP = nscap_try
+                cache1[est_key] = ns_host
+                break
+    ne1, ne2 = int(T1[7]), int(T2[7])
+    T1 = T2 = None
+    tcap_eff = _tcap_for(NSCAP, tcap)
+    with prof.span("devpipe.chain", dev):
+        for _ in range(3):
+            res, ns, nalive, plsum = _run_chain(
+                mout, NSCAP, tcap_eff, chain_break, chain_min, amax, bmax,
+                alens_by_rank, dev)
+            nt_host = int(res[9])
+            if nt_host <= tcap_eff or tcap_eff >= (1 << 22):
+                break
+            # overflow backstop: the seeds stay on the device, so only the
+            # chain stage reruns
+            tcap_eff = min(_pad_bucket(nt_host + (nt_host >> 2)), 1 << 22)
+        return _finish_tubes(
+            res, ns, nalive, plsum, NSCAP, ACAP,
+            lambda: ne1 > E1 or ne2 > E2 or nt_host > tcap_eff)

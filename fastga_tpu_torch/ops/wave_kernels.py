@@ -14,7 +14,7 @@ JAX package's XLA/host twins bit for bit:
 Each wrapper (``wave_chunk``, ``wave0``, ``backtrack_walk``) runs the plain
 version for CPU tensors and launches its CUDA kernel (csrc/*.cu, built with
 nvcc for sm_90a at first use) for CUDA tensors; there is no fallback between
-the two.  ``LAUNCHES`` counts kernel launches.
+the two.  ``LAUNCHES`` (ops/cuda_build.py) counts kernel launches.
 
 State layout (the JAX state tuple, 18 entries): V, Thi, Tlo, M int32 [N, W]
 (Thi/Tlo carry uint32 bit patterns), then kbase, low, hgh, besta, bestx,
@@ -26,27 +26,18 @@ bits; the kernels read them as uint32.
 
 from __future__ import annotations
 
-import ctypes
-import os
-import subprocess
-import threading
 import numpy as np
 import torch
 
+from .cuda_build import (LAUNCHES, build_kernels, check as _check,
+                         ptr as _ptr, raise_on as _raise_on,
+                         stream as _stream)
 from .wave_ref import PATH_LEN, TRIM_MASK, TRIM_MLAG, WAVE_LAG
 
 CH_DIAG, CH_LOW, CH_HIGH, CH_NONE = 0, 1, 2, 3
 NSC = 16          # packed scalar columns handed to the kernels
 M32 = 0xFFFFFFFF
 BIG = 1 << 30
-
-LAUNCHES = {"wave_chunk": 0, "wave0": 0, "backtrack_walk": 0}
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 # -- int32 / uint32 helpers for the plain versions ---------------------------
 
@@ -542,94 +533,7 @@ def canon_state(state, logs=None, W=None):
     return out
 
 
-# -- kernel build and launch --------------------------------------------------
-
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
-_BUILD = os.path.join(os.path.dirname(_HERE), "_build")
-_SOURCES = ("wave_chunk", "wave0", "backtrack_walk")
-_lock = threading.Lock()
-_libs = {}
-
-
-def _nvcc():
-    for p in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                           "bin", "nvcc"), "nvcc"):
-        if os.path.sep not in p or os.path.exists(p):
-            return p
-    return "nvcc"
-
-
-def build_kernels():
-    """Compile every kernel source that is missing or older than its
-    sources (one nvcc per source, all started together) and load them.
-    Returns {name: ctypes.CDLL}."""
-    with _lock:
-        if len(_libs) == len(_SOURCES):
-            return _libs
-        os.makedirs(_BUILD, exist_ok=True)
-        hdr = os.path.join(_CSRC, "wave_common.cuh")
-        procs = {}
-        for name in _SOURCES:
-            src = os.path.join(_CSRC, name + ".cu")
-            so = os.path.join(_BUILD, "lib" + name + ".so")
-            newest = max(os.path.getmtime(src), os.path.getmtime(hdr))
-            if os.path.exists(so) and os.path.getmtime(so) >= newest:
-                continue
-            tmp = so + ".%d.tmp" % os.getpid()
-            procs[name] = (subprocess.Popen(
-                [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                 "-Xptxas", "-v", "-I", _CSRC, "-o", tmp, src],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp, so)
-        for name, (p, tmp, so) in procs.items():
-            log, _ = p.communicate()
-            if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n"
-                                   + log.decode(errors="replace"))
-            os.replace(tmp, so)
-            with open(os.path.join(_BUILD, name + ".ptxas.txt"), "wb") as f:
-                f.write(log)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        for name in _SOURCES:
-            lib = ctypes.CDLL(os.path.join(_BUILD, "lib" + name + ".so"))
-            fn = getattr(lib, name + "_launch")
-            fn.restype = ci
-            if name == "wave_chunk":
-                fn.argtypes = [vp, ci, vp] + [vp] * 5 + [vp] * 5 \
-                    + [vp, vp] + [ci] * 7 + [vp]
-            elif name == "wave0":
-                fn.argtypes = [vp, ci, vp] + [vp] * 5 + [ci] * 3 + [vp]
-            else:
-                fn.argtypes = [vp] * 6 + [ci] * 3 + [vp]
-            _libs[name] = lib
-        return _libs
-
-
-def _check(t, dtype, shape, name):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: tensor must be contiguous")
-
-
-def _raise_on(rc, name):
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
+# -- kernel launch (build and helpers: ops/cuda_build.py) ---------------------
 
 def pack_scalars(st):
     """State scalar columns -> int32 [N, 16] (the kernels' layout)."""

@@ -27,7 +27,10 @@ def _nvtx():
 
 
 @contextmanager
-def span(name):
+def span(name, device=None):
+    """Time the enclosed block under ``name``.  With a CUDA ``device`` the
+    span waits for the device's queued work before it closes, so the time
+    of asynchronous kernels lands in the span that launched them."""
     if not ENABLED:
         yield
         return
@@ -37,11 +40,18 @@ def span(name):
     t0 = time.perf_counter()
     try:
         yield
+        if device is not None and _is_cuda(device):
+            import torch
+            torch.cuda.synchronize(device)
     finally:
         _acc[name] += time.perf_counter() - t0
         _cnt[name] += 1
         if nv is not None:
             nv.range_pop()
+
+
+def _is_cuda(device):
+    return getattr(device, "type", str(device).split(":")[0]) == "cuda"
 
 
 def count(name, n=1):

@@ -1,28 +1,39 @@
 """Chip smoke test of the PyTorch/CUDA port (fastga_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py                   # every phase, one card
+    python3 chip_smoke.py --compare DIR     # wave kernel times: DIR (an
+                                            # unpacked earlier commit) and
+                                            # this checkout, in turns
+    python3 chip_smoke.py --time-wave DIR   # one tree's wave kernel times
 
 Phases (every one runs; any failure exits non-zero before the summary):
 1. environment: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the nvcc build of the five kernels (csrc/*.cu);
 2. each wave kernel against its plain PyTorch version on the card, at the
-   main path's widths (wave_chunk at n=512/W=256/chunk=96/k=4 in both
-   directions, again on an indel-rich batch whose wide bands overflow
-   W=256, and at the W=512 and W=2048 rescue geometries, compared through
-   canon_state; wave0 and backtrack_walk bit for bit), with kernel ms,
-   plain ms and the floor (the larger of bytes over HBM rate and integer
-   operations over the float32 peak);
+   main path's widths: wave_chunk at n=512/W=256/G=384 in both directions,
+   again on an indel-rich batch whose wide bands overflow W=256, at the
+   W=512 and W=2048 rescue geometries, on a batch whose snakes run through
+   a 20 kb exact repeat and on one anchored at sequence ends, compared
+   through canon_state; the n=64 long lane at G=6,144 (one launch equal to
+   16 launches of 384, the first and last equal to the plain stepper);
+   wave0 and backtrack_walk bit for bit, the walk on a random log and on
+   the logs wave_chunk wrote; with kernel ms (wave_chunk also at G=1,536),
+   live waves (max, mean) and us a wave, plain ms and the floor (the
+   larger of bytes over HBM rate and integer operations over the float32
+   peak);
 3. the rescue lanes on the card: BatchAligner items that exhaust their
    wave budget or overflow the W=256 band go to the W=512 lane and must
    equal the exact scalar engine;
 4. the main path on the uniform scenario (192 x 50 kb per side) with the
    device seed pipeline: 3,799,831 seeds, 288 tubes, 288 alignments
    covering 9,600,142 bp, a TubeBatch equal to the host seed path's, and
-   every kernel launched; then its device_tubes again with the chain in
-   A-contig panels (CHAIN_DEV_CAP lowered below its seed bucket), equal to
-   the monolithic run;
+   every kernel launched; the wave kernels' launches by shape; then its
+   device_tubes again with the chain in A-contig panels (CHAIN_DEV_CAP
+   lowered below its seed bucket), equal to the monolithic run;
 5. the main path on the repeat-rich scenario (24 Mbp per side): 22,902,602
-   seeds, 99,999 tubes, 92,988 alignments covering 187,735,625 bp;
+   seeds, 99,999 tubes, 92,988 alignments covering 187,735,625 bp, the
+   wave kernels' launches by shape, then a second run under torch.profiler
+   (CUDA activity only) for each kernel's device time and count;
 6. merge_path and fused_scan against their plain versions, bit for bit on
    every row, on the inputs the main path gave them (the uniform
    merge_seeds merge, the repeat-rich chain merge, every scan spec either
@@ -80,10 +91,14 @@ def smi_line():
     return out[0] if out else ""
 
 
-def cuda_ms(fn, reps, windows=1, warm=3):
+def cuda_ms(fn, reps, windows=1, warm=3, queued=True):
     """Mean ms per call over ``reps`` calls between CUDA events, after
     ``warm`` warm-up calls; the median over ``windows`` such windows (the
-    first timed kernel of a process can run at idle clocks)."""
+    first timed kernel of a process can run at idle clocks).  ``queued``:
+    a spin kernel (about 1 ms a call) holds the card before the first event
+    while the host queues the calls, so the events time the calls back to
+    back on the card and not the host's launch work between them (which
+    exceeds a small kernel's time)."""
     import torch
     for _ in range(warm):
         fn()
@@ -92,6 +107,8 @@ def cuda_ms(fn, reps, windows=1, warm=3):
     for _ in range(windows):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(2_000_000 * reps)
         e0.record()
         for _ in range(reps):
             fn()
@@ -101,42 +118,85 @@ def cuda_ms(fn, reps, windows=1, warm=3):
     return float(np.median(times))
 
 
-def seeded_batch(n, W, seed, wide=False, contigs=8, clen=50_000):
-    """n tubes over seeded contig pairs: pool, targs and the wave-0
-    columns, as CUDA tensors.  A plain batch pairs synth.uniform_pair
-    contigs (1% divergence) with bands of at most +-20 diagonals.  A
-    ``wide`` batch pairs 8%-divergent indel-rich contigs and gives every
-    odd tube a band of W-5 to W-1 diagonals, which overflows W-4 on the
-    first wave unless the WAVE_LAG prune narrows it: the band-overflow
-    fallback of the stepper."""
+def dev_us(e):
+    """A profiler event's own device time, us."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0)) or 0
+
+
+def _edge_pair(rng, n, kind):
+    """Pool words, (aw, alen, bw, blen) and anti for the exact-repeat and
+    sequence-end batches.  B is A with 1% substitutions and no indels, so
+    x and y stay aligned.  ``exact``: B[10,000:30,000) copies A exactly and
+    the tubes are anchored 100-2,000 bases before or after that stretch,
+    so one wave's snake runs up to 20,000 bases, past the kernel's
+    8,192-base sequence window.  ``ends``: A sits at pool word 0 and B ends
+    at the pool's last word (no guard words), and the tubes are anchored
+    within 64 bases of a sequence's start or end, so fetches clamp at both
+    ends of the pool."""
+    from fastga_tpu_torch.ops import seqpack
+    L = 40_000 if kind == "exact" else 20_000
+    A = rng.integers(0, 4, L).astype(np.uint8)
+    B = A.copy()
+    sub = rng.random(L) < 0.01
+    if kind == "exact":
+        sub[10_000:30_000] = False
+    B[sub] = (B[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    wa, wb = seqpack.pack_u32(A), seqpack.pack_u32(B)
+    side = np.arange(n) % 2 == 0
+    if kind == "exact":
+        x0 = np.where(side, rng.integers(8_000, 9_900, n),
+                      rng.integers(30_100, 32_000, n))
+    else:
+        x0 = np.where(side, rng.integers(10, 64, n),
+                      rng.integers(L - 64, L - 10, n))
+    cols = [np.full(n, v, np.int32) for v in (0, L, len(wa), L)]
+    return np.concatenate([wa, wb]), cols, (2 * x0).astype(np.int32)
+
+
+def seeded_batch(n, W, seed, kind="plain"):
+    """n tubes over seeded sequence pairs: pool, targs and the wave-0
+    columns, as CUDA tensors.  ``plain`` pairs synth.uniform_pair contigs
+    (8 x 50 kb, 1% divergence) with bands of at most +-20 diagonals;
+    ``long`` does the same over 4 x 700 kb contigs, so tubes live for
+    thousands of waves (the n=64 long lane's budget, G = 6,144).  ``wide``
+    pairs 8%-divergent indel-rich contigs and gives every odd tube a band
+    of W-5 to W-1 diagonals, which overflows W-4 on the first wave unless
+    the WAVE_LAG prune narrows it: the band-overflow fallback of the
+    stepper.  ``exact`` and ``ends``: see _edge_pair."""
     import torch
 
     from fastga_tpu_torch import convert
     from fastga_tpu_torch.ops import seqpack
     from fastga_tpu_torch.utils import synth
     rng = np.random.default_rng(seed)
-    if wide:
-        A = [rng.integers(0, 4, clen).astype(np.uint8)
-             for _ in range(contigs)]
-        pair = dict(A=A, B=[synth.mutate(rng, a, 0.08, indel_frac=0.4)
-                            for a in A])
+    if kind in ("exact", "ends"):
+        words, (aw, alen, bw, blen), anti = _edge_pair(rng, n, kind)
     else:
-        pair = synth.uniform_pair(rng, contigs, clen)
-    seqs = {}
-    for i in range(contigs):
-        seqs[("a", i)] = pair["A"][i]
-        seqs[("b", i)] = pair["B"][i]
-    pool = seqpack.SeqPool.build(seqs)
-    ci = np.arange(n) % contigs
-    aw = np.array([pool.offs[("a", c)][0] for c in ci], np.int32)
-    alen = np.array([pool.offs[("a", c)][1] for c in ci], np.int32)
-    bw = np.array([pool.offs[("b", c)][0] for c in ci], np.int32)
-    blen = np.array([pool.offs[("b", c)][1] for c in ci], np.int32)
-    anti = (2 * rng.integers(500, clen - 500, n)).astype(np.int32)
+        contigs, clen = (4, 700_000) if kind == "long" else (8, 50_000)
+        if kind == "wide":
+            A = [rng.integers(0, 4, clen).astype(np.uint8)
+                 for _ in range(contigs)]
+            pair = dict(A=A, B=[synth.mutate(rng, a, 0.08, indel_frac=0.4)
+                                for a in A])
+        else:
+            pair = synth.uniform_pair(rng, contigs, clen)
+        seqs = {}
+        for i in range(contigs):
+            seqs[("a", i)] = pair["A"][i]
+            seqs[("b", i)] = pair["B"][i]
+        pool = seqpack.SeqPool.build(seqs)
+        words = pool.words
+        ci = np.arange(n) % contigs
+        aw = np.array([pool.offs[("a", c)][0] for c in ci], np.int32)
+        alen = np.array([pool.offs[("a", c)][1] for c in ci], np.int32)
+        bw = np.array([pool.offs[("b", c)][0] for c in ci], np.int32)
+        blen = np.array([pool.offs[("b", c)][1] for c in ci], np.int32)
+        anti = (2 * rng.integers(500, clen - 500, n)).astype(np.int32)
     half = min(20, W // 8)
     dgmin = rng.integers(-half, 0, n).astype(np.int32)
     dgmax = rng.integers(1, half, n).astype(np.int32)
-    if wide:
+    if kind == "wide":
         h = rng.integers(W // 2 - 3, W // 2, n)
         odd = np.arange(n) % 2 == 1
         dgmin = np.where(odd, -h, dgmin).astype(np.int32)
@@ -147,7 +207,7 @@ def seeded_batch(n, W, seed, wide=False, contigs=8, clen=50_000):
          np.full(n, 1 << 30, np.int32)), dev)
     cols = [torch.as_tensor(a, device=dev) for a in
             (dgmin, dgmax, anti, np.ones(n, np.int32))]
-    return convert.pool_from_numpy(pool.words, dev), targs, cols
+    return convert.pool_from_numpy(words, dev), targs, cols
 
 
 def _pool_span_bytes(st0, st1):
@@ -181,6 +241,10 @@ def check_wave0(n, W, seed, direction, reps=20):
             err = max(err, int((a.long() - b.long()).abs().max()))
     ms = cuda_ms(lambda: wk.wave0(pool, targs, dgmin, dgmax, anti, valid, W,
                                   direction), reps, windows=5)
+    # the same events without the spin kernel: the host's launch work
+    call_ms = cuda_ms(lambda: wk.wave0(pool, targs, dgmin, dgmax, anti,
+                                       valid, W, direction), reps, windows=5,
+                      queued=False)
     plain_ms = cuda_ms(lambda: wk.wave0_plain(
         pool, targs, dgmin, dgmax, anti, valid, W, direction), 2)
     # bytes: the ten tube columns, the pool words the band snakes span, the
@@ -190,108 +254,246 @@ def check_wave0(n, W, seed, direction, reps=20):
     nbytes = 10 * n * 4 + span + n * W * 16 + n * 16 * 4
     slots = int((dgmax - dgmin + 1).clamp(min=0).sum())
     bms, by = bound(nbytes, slots * OPS_WAVE0_SLOT)
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by)
+    return dict(err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by)
 
 
-def check_chunk(n, W, chunk, k, seed, direction, spec, wide=False, reps=5):
-    import torch
-
-    from fastga_tpu_torch.ops import wave_kernels as wk
-    G = k * chunk
-    pool, targs, (dgmin, dgmax, anti, valid) = seeded_batch(n, W, seed,
-                                                            wide)
-    st0 = wk.wave0(pool, targs, dgmin, dgmax, anti, valid, W, direction)
-    st_k, ch_k, kb_k = wk.wave_chunk(pool, targs, st0, spec, direction, G)
-    st_p, ch_p, band_p = wk.chunk_plain(pool, targs, st0, spec, direction,
-                                        G)
-    torch.cuda.synchronize()
-    a = wk.canon_state(st_k, (ch_k, kb_k), W)
-    b = wk.canon_state(st_p, (ch_p, band_p[:, :, 2]), W)
-    err = 0
-    bad = []
+def canon_diff(a, b):
+    """(max abs difference, keys that differ) of two canon_state dicts."""
+    err, bad = 0, []
     for key in a:
         if not np.array_equal(a[key], b[key]):
             bad.append(key)
             err = max(err, int(np.abs(a[key].astype(np.int64)
                                       - b[key].astype(np.int64)).max()))
-    ms = cuda_ms(lambda: wk.wave_chunk(pool, targs, st0, spec, direction, G,
-                                       logs=(ch_k, kb_k)), reps, windows=5)
-    t0 = time.perf_counter()
-    wk.chunk_plain(pool, targs, st0, spec, direction, G)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    return err, bad
+
+
+def rel_dif(st, st_in):
+    """``st`` with dif counted from ``st_in`` (canon_state masks the log
+    rows of a run that starts past wave 0 by that count)."""
+    return tuple(st[:17]) + (st[17] - st_in[17],)
+
+
+def slot_waves(ch, live):
+    """In-band slots over the live waves of a kernel's choice log (a live
+    row logs CH_NONE outside the band)."""
+    import torch
+    G = ch.shape[0]
+    rows = torch.arange(G, device=ch.device)[:, None] < live[None, :]
+    return int(((ch != 3).sum(2) * rows).sum())
+
+
+def chunk_bound(st0, st_k, ch_k, W):
+    """Bytes (state in and out, a log row and kbase word per live wave, the
+    pool words the live lanes span, the tube columns) and operations (per
+    in-band slot of a live wave) of one wave_chunk call."""
+    n = st0[0].shape[0]
     live = (st_k[17].long() - st0[17].long()).clamp(min=0)
     nbytes = (2 * (n * W * 16 + n * 16 * 4) + int(live.sum()) * (W + 4)
               + _pool_span_bytes(st0, st_k) + 6 * n * 4)
-    # in-band slots of the live waves, from the plain run's band log
-    width = (band_p[:, :, 1].long() - band_p[:, :, 0].long() + 1).clamp(
-        min=0)
-    rows = torch.arange(G, device=width.device)[:, None] < live[None, :]
-    slot_waves = int((width * rows).sum())
-    bms, by = bound(nbytes, slot_waves * OPS_CHUNK_SLOT)
-    # tubes the plain stepper flagged while alive (band overflow or an
-    # empty band)
-    fell = int((st_p[16] & ~st0[16]).sum())
-    return dict(err=err, bad=bad, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, waves_max=int(live.max()),
-                waves_mean=float(live.double().mean()), fell=fell)
+    return live, bound(nbytes, slot_waves(ch_k, live) * OPS_CHUNK_SLOT)
 
 
-def check_walk(G, n, W, seed, reps=20):
+def check_chunk(n, W, chunk, k, seed, direction, spec, kind="plain",
+                reps=5, plain=True):
+    """wave_chunk at G = k * chunk on a seeded batch: against chunk_plain
+    through canon_state (unless ``plain`` is False: timing only), kernel
+    ms, the bound and the live-wave counts.  ``logs`` keeps the kernel's
+    state and logs for the walk."""
     import torch
 
     from fastga_tpu_torch.ops import wave_kernels as wk
+    G = k * chunk
+    pool, targs, (dgmin, dgmax, anti, valid) = seeded_batch(n, W, seed,
+                                                            kind)
+    st0 = wk.wave0(pool, targs, dgmin, dgmax, anti, valid, W, direction)
+    st_k, ch_k, kb_k = wk.wave_chunk(pool, targs, st0, spec, direction, G)
+    err, bad, plain_ms, fell = 0, [], None, 0
+    if plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_p, ch_p, band_p = wk.chunk_plain(pool, targs, st0, spec,
+                                            direction, G)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err, bad = canon_diff(wk.canon_state(st_k, (ch_k, kb_k), W),
+                              wk.canon_state(st_p, (ch_p, band_p[:, :, 2]),
+                                             W))
+        # tubes the plain stepper flagged while alive (band overflow or an
+        # empty band)
+        fell = int((st_p[16] & ~st0[16]).sum())
+    ms = cuda_ms(lambda: wk.wave_chunk(pool, targs, st0, spec, direction, G,
+                                       logs=(ch_k, kb_k)), reps, windows=5)
+    live, (bms, by) = chunk_bound(st0, st_k, ch_k, W)
+    # tubes whose best point crossed the exact stretch of the exact batch
+    # (its snake ran up to 20,000 bases in one wave)
+    bx = st_k[8].long()
+    crossed = int(((bx >= 30_000) if direction > 0 else (bx < 10_000)).sum())
+    return dict(err=err, bad=bad, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, waves_max=int(live.max()),
+                waves_mean=float(live.double().mean()), fell=fell,
+                crossed=crossed, logs=(st_k, ch_k, kb_k))
+
+
+def check_long(spec, direction, seed=202, reps=2):
+    """The n=64 long lane's geometry at its largest budget (W=256, G =
+    64 x 96 = 6,144) on the ``long`` batch: one launch of G waves equals
+    16 launches of 384 in a row (canon_state, logs included), and the
+    first and the last of those 384-wave launches equal chunk_plain from
+    the same input state.  Kernel ms of the G-wave launch."""
+    import torch
+
+    from fastga_tpu_torch.ops import wave_kernels as wk
+    n, W, G, piece = 64, 256, 64 * 96, 4 * 96
+    pool, targs, (dgmin, dgmax, anti, valid) = seeded_batch(n, W, seed,
+                                                            "long")
+    st0 = wk.wave0(pool, targs, dgmin, dgmax, anti, valid, W, direction)
+    st_k, ch_k, kb_k = wk.wave_chunk(pool, targs, st0, spec, direction, G)
+    st, pieces = st0, []
+    for _ in range(G // piece):
+        st_in = st
+        st, ch, kb = wk.wave_chunk(pool, targs, st_in, spec, direction,
+                                   piece)
+        pieces.append((st_in, st, ch, kb))
+    err, bad = canon_diff(
+        wk.canon_state(st_k, (ch_k, kb_k), W),
+        wk.canon_state(st, (torch.cat([p[2] for p in pieces]),
+                            torch.cat([p[3] for p in pieces])), W))
+    plain_ms = None
+    for st_in, st_out, ch, kb in (pieces[0], pieces[-1]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_p, ch_p, band_p = wk.chunk_plain(pool, targs, st_in, spec,
+                                            direction, piece)
+        torch.cuda.synchronize()
+        if plain_ms is None:
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        e, b = canon_diff(
+            wk.canon_state(rel_dif(st_out, st_in), (ch, kb), W),
+            wk.canon_state(rel_dif(st_p, st_in), (ch_p, band_p[:, :, 2]), W))
+        err, bad = max(err, e), bad + [f"piece:{x}" for x in b]
+    ms = cuda_ms(lambda: wk.wave_chunk(pool, targs, st0, spec, direction, G,
+                                       logs=(ch_k, kb_k)), reps, windows=3)
+    live, (bms, by) = chunk_bound(st0, st_k, ch_k, W)
+    return dict(err=err, bad=bad, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, waves_max=int(live.max()),
+                waves_mean=float(live.double().mean()),
+                fell=int((st_k[16] & ~st0[16]).sum()),
+                last_alive=int(pieces[-1][0][15].sum()),
+                logs=(st_k, ch_k, kb_k))
+
+
+def random_logs(G, n, W, seed, far=False):
+    """A random choice log, kbase log, trim diagonals and trim waves;
+    ``far`` puts the trim diagonals about 2^30 from the kbase values (the
+    walk kernel's exact path for diagonals far from the band)."""
+    import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
     ch = torch.randint(0, 4, (G, n, W), generator=g, dtype=torch.uint8)
     kb = torch.randint(-40, 40, (G, n), generator=g, dtype=torch.int32)
     td = torch.randint(-100, 100, (n,), generator=g, dtype=torch.int32)
+    if far:
+        td = td + torch.where(torch.arange(n) % 2 == 0, 1, -1).to(
+            torch.int32) * ((1 << 30) + 1000)
     tw = torch.randint(0, G + 1, (n,), generator=g, dtype=torch.int32)
-    ch, kb, td, tw = (t.cuda() for t in (ch, kb, td, tw))
+    return tuple(t.cuda() for t in (ch, kb, td, tw))
+
+
+def check_walk(ch, kb, td, tw, reps=20):
+    """backtrack_walk against walk_plain, bit for bit; kernel and plain ms;
+    the bound counts what these logs need: a log byte and a kbase word for
+    each wave that steps (w < trim_wave), a D word for every wave."""
+    from fastga_tpu_torch.ops import wave_kernels as wk
+    G, n, W = ch.shape
     d0k, Dk = wk.backtrack_walk(ch, kb, td, tw)
     d0p, Dp = wk.walk_plain(ch, kb, td, tw)
-    torch.cuda.synchronize()
     err = max(int((d0k - d0p).abs().max()), int((Dk - Dp).abs().max()))
     ms = cuda_ms(lambda: wk.backtrack_walk(ch, kb, td, tw), reps, windows=5)
-    plain_ms = cuda_ms(lambda: wk.walk_plain(ch, kb, td, tw), 1)
-    # one log byte and one kbase word read per wave per tube, D written
-    nbytes = G * n * (1 + 4 + 4) + 3 * n * 4
-    bms, by = bound(nbytes, G * n * OPS_WALK_STEP)
+    plain_ms = cuda_ms(lambda: wk.walk_plain(ch, kb, td, tw), 1, warm=1)
+    steps = int(tw.long().clamp(0, G).sum())
+    nbytes = steps * (1 + 4) + G * n * 4 + 3 * n * 4
+    bms, by = bound(nbytes, steps * OPS_WALK_STEP)
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by)
+                bound_by=by, steps=steps)
+
+
+def _chunk_line(r, n, W, G, d, kind):
+    per = 1e3 * r["ms"] / max(r["waves_max"], 1)
+    plain = ("" if r["plain_ms"] is None
+             else f" plain {r['plain_ms']:.1f} ms")
+    return (f"wave_chunk dir={d:+d} n={n} W={W} G={G} {kind}: max_abs_err="
+            f"{r['err']} {r['bad']} live waves mean {r['waves_mean']:.1f} "
+            f"max {r['waves_max']} fell {r['fell']} kernel {r['ms']:.4f} ms "
+            f"({per:.3f} us a wave){plain} bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
+
+
+def _walk_line(r, what):
+    return (f"backtrack_walk {what}: max_abs_err={r['err']} kernel "
+            f"{r['ms']:.4f} ms plain {r['plain_ms']:.1f} ms bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}; {r['steps']} steps)")
 
 
 def phase_kernels(spec):
+    """Each wave kernel against its plain version on the card, with its
+    time.  wave_chunk: the main shape (n=512/W=256/G=384) on the plain and
+    the wide batch, the W=512 and W=2048 rescue geometries, the exact-repeat
+    and sequence-end batches, the long lane (check_long), all in both
+    directions; timed alone at G=1,536 too.  backtrack_walk on a random log
+    and on the logs wave_chunk wrote at each timed shape."""
     rows = {}
     out = {}
     for d in (+1, -1):
         r = check_wave0(512, 256, 101, d)
         log(f"wave0 dir={d:+d} n=512 W=256: max_abs_err={r['err']} "
-            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.3f} ms "
+            f"kernel {r['ms']:.4f} ms (with the host's launch work "
+            f"{r['call_ms']:.4f} ms) plain {r['plain_ms']:.3f} ms "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
         rows.setdefault("wave0", []).append(r)
-    for (n, W, chunk, k, wide) in ((512, 256, 96, 4, False),
-                                   (512, 256, 96, 4, True),
-                                   (32, 512, 96, 4, False),
-                                   (32, 2048, 24, 4, False)):
+    r = check_walk(*random_logs(1536, 512, 256, 303))
+    log(_walk_line(r, "G=1536 n=512 W=256 random log"))
+    rows["backtrack_walk"] = [r]
+    r = check_walk(*random_logs(96, 64, 256, 304, far=True))
+    log(_walk_line(r, "G=96 n=64 W=256 random log, diagonals 2^30 off"))
+    rows["backtrack_walk"].append(r)
+    walk_logs = []
+    for (n, W, chunk, k, kind, plain) in (
+            (512, 256, 96, 4, "plain", True), (512, 256, 96, 4, "wide", True),
+            (32, 512, 96, 4, "plain", True), (32, 2048, 24, 4, "plain", True),
+            (32, 256, 96, 4, "exact", True), (32, 256, 96, 4, "ends", True),
+            (512, 256, 96, 16, "plain", False)):
         for d in (+1, -1):
-            r = check_chunk(n, W, chunk, k, 202, d, spec, wide)
-            log(f"wave_chunk dir={d:+d} n={n} W={W} chunk={chunk} k={k}"
-                f"{' wide' if wide else ''}: max_abs_err={r['err']} "
-                f"{r['bad']} live waves mean {r['waves_mean']:.1f} max "
-                f"{r['waves_max']} fell {r['fell']} kernel {r['ms']:.3f} ms "
-                f"plain {r['plain_ms']:.1f} ms bound {r['bound_ms']:.5f} ms "
-                f"({r['bound_by']})")
-            if wide and r["fell"] == 0:
+            r = check_chunk(n, W, chunk, k, 202, d, spec, kind, plain=plain)
+            log(_chunk_line(r, n, W, k * chunk, d, kind)
+                + ("" if kind != "exact" else
+                   f" crossed the exact stretch {r['crossed']}"))
+            if kind == "wide" and r["fell"] == 0:
                 raise SystemExit("wave_chunk: the wide batch overflowed no "
                                  "band; the fallback branch went unchecked")
+            if kind == "exact" and r["crossed"] == 0:
+                raise SystemExit("wave_chunk: no tube of the exact batch "
+                                 "crossed its exact stretch")
+            if kind == "plain" and W == 256:
+                walk_logs.append((f"G={k * chunk} n={n} W={W} dir={d:+d} "
+                                  "real log", r["logs"]))
+            r.pop("logs")
             rows.setdefault("wave_chunk", []).append(
-                dict(r, shape=(n, W, chunk, k, d, wide)))
-    r = check_walk(1536, 512, 256, 303)
-    log(f"backtrack_walk G=1536 n=512 W=256: max_abs_err={r['err']} "
-        f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.1f} ms "
-        f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
-    rows["backtrack_walk"] = [r]
+                dict(r, shape=(n, W, chunk, k, d, kind)))
+    for d in (+1, -1):
+        r = check_long(spec, d)
+        log(_chunk_line(r, 64, 256, 6144, d, "long")
+            + f" (= 16 x 384-wave launches; first and last equal to the "
+            f"plain stepper; {r['last_alive']} tubes alive at the last)")
+        walk_logs.append((f"G=6144 n=64 W=256 dir={d:+d} real log",
+                          r.pop("logs")))
+        rows["wave_chunk"].append(dict(r, shape=(64, 256, 96, 64, d,
+                                                 "long")))
+    for what, (st, ch, kb) in walk_logs:
+        r = check_walk(ch, kb, st[14], st[13])
+        log(_walk_line(r, what))
+        rows["backtrack_walk"].append(r)
+    del walk_logs
     for name, rs in rows.items():
         err = max(x["err"] for x in rs)
         if err != 0:
@@ -303,6 +505,100 @@ def phase_kernels(spec):
                          bound_ms=main["bound_ms"],
                          bound_by=main["bound_by"])
     return out
+
+
+def time_wave(tree):
+    """The wave kernels of the fastga_tpu_torch under ``tree`` (this
+    checkout, or an unpacked earlier commit) timed at the main shapes
+    (n=512/W=256, G=384 and 1,536) and the long lane's (n=64, G=6,144), in
+    both directions, wave_chunk and backtrack_walk on the log it wrote,
+    and backtrack_walk on a random log; prints one JSON line with a digest
+    of each output (canon_state of wave_chunk, d0 and D of the walk)."""
+    import hashlib
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    from fastga_tpu_torch.ops import cuda_build, wave_kernels as wk
+    from fastga_tpu_torch.ops.wave_ref import AlignSpec
+    cuda_build.build_kernels()
+    spec = AlignSpec(0.7, 100, False, (0.25, 0.25, 0.25, 0.25))
+
+    def digest(arrs):
+        h = hashlib.sha1()
+        for a in arrs:
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()[:16]
+    out = {"tree": os.path.abspath(tree), "card": smi_line()}
+    for n, k, kind in ((512, 4, "plain"), (512, 16, "plain"),
+                       (64, 64, "long")):
+        G = 96 * k
+        pool, targs, (dgmin, dgmax, anti, valid) = seeded_batch(n, 256, 202,
+                                                                kind)
+        for d in (+1, -1):
+            st0 = wk.wave0(pool, targs, dgmin, dgmax, anti, valid, 256, d)
+            st, ch, kb = wk.wave_chunk(pool, targs, st0, spec, d, G)
+            can = wk.canon_state(st, (ch, kb), 256)
+            d0, D = wk.backtrack_walk(ch, kb, st[14], st[13])
+            live = (st[17].long() - st0[17].long()).clamp(min=0)
+            out[f"n={n} G={G} dir={d:+d}"] = dict(
+                chunk_ms=cuda_ms(lambda: wk.wave_chunk(
+                    pool, targs, st0, spec, d, G, logs=(ch, kb)),
+                    5 if G <= 1536 else 2, windows=5),
+                walk_ms=cuda_ms(lambda: wk.backtrack_walk(
+                    ch, kb, st[14], st[13]), 20, windows=5),
+                waves_max=int(live.max()),
+                waves_mean=float(live.double().mean()),
+                chunk_digest=digest(can[key] for key in sorted(can)),
+                walk_digest=digest((d0.cpu().numpy(), D.cpu().numpy())))
+            del ch, kb
+    lg = random_logs(1536, 512, 256, 303)
+    d0, D = wk.backtrack_walk(*lg)
+    out["random log G=1536 n=512"] = dict(
+        walk_ms=cuda_ms(lambda: wk.backtrack_walk(*lg), 20, windows=5),
+        walk_digest=digest((d0.cpu().numpy(), D.cpu().numpy())))
+    torch.cuda.synchronize()
+    print("TIMING " + json.dumps(out), flush=True)
+
+
+def compare_trees(parent):
+    """time_wave of ``parent`` (an unpacked earlier commit) and of this
+    checkout, each in its own process, in the order parent, this, this,
+    parent, on one card; prints each reading and whether the outputs'
+    digests agree."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for tree in (parent, here, here, parent):
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--time-wave", tree], capture_output=True,
+                           text=True, timeout=900)
+        lines = [x for x in p.stdout.splitlines() if x.startswith("TIMING ")]
+        if p.returncode != 0 or not lines:
+            raise SystemExit(f"time_wave {tree} failed ({p.returncode}):\n"
+                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        runs.append(json.loads(lines[0][len("TIMING "):]))
+    log(f"card: {runs[0]['card']}")
+    same = True
+    for key in runs[0]:
+        if key in ("tree", "card"):
+            continue
+        for what in ("chunk", "walk"):
+            if what + "_ms" not in runs[0][key]:
+                continue
+            ms = [r[key][what + "_ms"] for r in runs]
+            dg = {r[key][what + "_digest"] for r in runs}
+            same = same and len(dg) == 1
+            extra = ""
+            if what == "chunk":
+                wm = runs[1][key]["waves_max"]
+                extra = (f" waves max {wm} mean "
+                         f"{runs[1][key]['waves_mean']:.1f}; us a wave "
+                         f"parent {1e3 * ms[0] / wm:.3f} this "
+                         f"{1e3 * ms[1] / wm:.3f}")
+            log(f"{what} {key}: parent {ms[0]:.4f} / {ms[3]:.4f} ms, this "
+                f"{ms[1]:.4f} / {ms[2]:.4f} ms{extra}; outputs "
+                f"{'equal' if len(dg) == 1 else 'DIFFER'}")
+    print("AB " + json.dumps(runs), flush=True)
+    return 0 if same else 1
 
 
 # -- the seed pipeline's kernels ----------------------------------------------
@@ -352,6 +648,110 @@ class SeedCapture:
     def __exit__(self, *exc):
         from fastga_tpu_torch.ops import device_pipeline as tp
         tp.merge_sorted_streams, tp.fused_scan, tp.device_tubes = self._orig
+
+
+class WaveCapture:
+    """Records the shape of every wave kernel launch of one main-path run,
+    in order: wave_chunk and backtrack_walk by (n, W, G, direction), wave0
+    by (n, W, direction); the walk takes the direction of the wave_chunk
+    call before it.  The wrapped calls launch the kernels as before."""
+
+    def __enter__(self):
+        from fastga_tpu_torch.ops import wave_kernels as wk
+        self.calls = []
+        self._orig = (wk.wave0, wk.wave_chunk, wk.backtrack_walk)
+        wave0, chunk, walk = self._orig
+        last = [0]
+
+        def wave0_w(pool, targs, dgmin, dgmax, anti, valid, W, direction):
+            self.calls.append(("wave0", targs[0].shape[0], W, "-",
+                               direction))
+            return wave0(pool, targs, dgmin, dgmax, anti, valid, W,
+                         direction)
+
+        def chunk_w(pool, targs, st, spec, direction, G, logs=None):
+            last[0] = direction
+            self.calls.append(("wave_chunk",) + tuple(st[0].shape)
+                              + (G, direction))
+            return chunk(pool, targs, st, spec, direction, G, logs)
+
+        def walk_w(ch, kb, trim_diag, trim_wave):
+            G, N, W = ch.shape
+            self.calls.append(("backtrack_walk", N, W, G, last[0]))
+            return walk(ch, kb, trim_diag, trim_wave)
+
+        wk.wave0, wk.wave_chunk, wk.backtrack_walk = wave0_w, chunk_w, walk_w
+        return self
+
+    def __exit__(self, *exc):
+        from fastga_tpu_torch.ops import wave_kernels as wk
+        wk.wave0, wk.wave_chunk, wk.backtrack_walk = self._orig
+
+    def report(self, name, kernel_us=None):
+        """Launches by shape; with ``kernel_us`` ({kernel: [device us of
+        each launch, in order]}), each shape's device ms."""
+        from collections import Counter
+        us = {}
+        if kernel_us is not None:
+            seen = Counter()
+            for key in self.calls:
+                i = seen[key[0]]
+                seen[key[0]] += 1
+                us[key] = us.get(key, 0.0) + kernel_us[key[0]][i]
+        for key, c in sorted(Counter(self.calls).items(),
+                             key=lambda kv: str(kv[0])):
+            kern, n, W, G, d = key
+            t = (f": {us[key] / 1e3:.3f} ms device (mean "
+                 f"{us[key] / 1e3 / c:.4f} ms)" if key in us else "")
+            log(f"  wave launches[{name}]: {kern} n={n} W={W} G={G} "
+                f"dir={d:+d} x{c}{t}")
+
+
+def profile_kernels(name, g1, g2):
+    """The main path once more under torch.profiler, CUDA activity only:
+    each device kernel's total time and count (self_device_time_total is
+    the total over a kernel's calls, not a per-call time; the mean per
+    call is printed beside it), and the wave kernels' device time by
+    launch shape (their kernels in start order, matched to the shapes
+    WaveCapture recorded in call order)."""
+    import torch
+
+    from fastga_tpu_torch.models import aligner
+    torch.cuda.synchronize()
+    with WaveCapture() as wcap, torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        aligner.align_genomes(g1, g2, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = [e for e in p.key_averages() if dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in ka) / 1e6
+    if busy <= 0:
+        log(f"profile[{name}]: device time not measured (the profiler "
+            "recorded none)")
+        return
+    log(f"profile[{name}]: device busy {busy:.4f} s of {wall:.3f} s wall "
+        f"under the profiler (idle share {1 - busy / wall:.4f})")
+    ours = ("wave_chunk_kernel", "wave0_kernel", "backtrack_walk_kernel",
+            "merge", "scan")
+    top = sorted(ka, key=dev_us, reverse=True)
+    for i, e in enumerate(top):
+        if i < 12 or any(k in e.key for k in ours):
+            log(f"  device[{name}] {e.key[:90]}: total {dev_us(e) / 1e3:.3f} "
+                f"ms x{e.count} (mean {dev_us(e) / 1e3 / e.count:.4f} ms)")
+    per = {}
+    for kern in ("wave0", "wave_chunk", "backtrack_walk"):
+        evs = sorted((e for e in p.events()
+                      if kern + "_kernel" in e.name and dev_us(e) > 0),
+                     key=lambda e: e.time_range.start)
+        per[kern] = [dev_us(e) for e in evs]
+    n_calls = {k: sum(1 for c in wcap.calls if c[0] == k) for k in per}
+    if any(len(per[k]) != n_calls[k] for k in per):
+        log(f"profile[{name}]: device ms by shape not measured (kernels "
+            f"{ {k: len(v) for k, v in per.items()} }, calls {n_calls})")
+        wcap.report(name)
+        return
+    wcap.report(name, per)
 
 
 def merge_streams(E1, E2, n1, n2, ncols, seed):
@@ -632,11 +1032,12 @@ def check_paneled(cap):
 def phase_uniform():
     from fastga_tpu_torch.ops import cuda_build
     g1, g2 = uniform_gdbs()
-    with SeedCapture() as cap:
+    with SeedCapture() as cap, WaveCapture() as wcap:
         cuda_build.reset_launches()
         ovls, stats, _ = run_main_path("uniform", g1, g2)
         launches = dict(cuda_build.LAUNCHES)
     log(f"  launches[uniform]: {json.dumps(launches)}")
+    wcap.report("uniform")
     if (stats["nlive"], stats["cov"]) != UNIFORM_EXPECT:
         raise SystemExit(f"uniform: nlive {stats['nlive']} cov "
                          f"{stats['cov']}; expected {UNIFORM_EXPECT}")
@@ -670,6 +1071,7 @@ def phase_repeatrich(mbp):
         raise SystemExit(f"repeatrich: nlive {stats['nlive']} cov "
                          f"{stats['cov']}; expected {REPEAT_RICH_EXPECT}")
     check_seeds("repeatrich", stats, REPEAT_RICH_SEEDS)
+    profile_kernels("repeatrich", g1, g2)
     return launches, cap
 
 
@@ -739,9 +1141,6 @@ def phase_profile():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0)) or 0
     # device-side events only (kernels, copies): a CPU op's device time
     # repeats that of the kernels it launched
     ka = [e for e in p.key_averages()
@@ -780,10 +1179,18 @@ def phase_exact():
     log(f"exact: {len(got)} records equal to the exact engine's")
 
 
-def main():
+def main(argv):
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if argv[:1] == ["--time-wave"] and len(argv) == 2:
+        time_wave(argv[1])
+        return 0
+    if argv[:1] == ["--compare"] and len(argv) == 2:
+        return compare_trees(argv[1])
+    if argv:
+        print(__doc__, file=sys.stderr)
         return 2
     smi = smi_line()
     log(f"card: {smi}")
@@ -846,4 +1253,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

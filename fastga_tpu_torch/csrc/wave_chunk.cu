@@ -4,36 +4,177 @@
 // mega_k > 0): one call runs up to G = k*chunk waves with early exit; the
 // arithmetic is that of ops/wave.py build_forward_chunk (one_wave).
 //
-// Design: one CTA per tube, threads on diagonal slots (W/SPT threads, SPT
-// consecutive slots each: SPT = 2 at W = 2048, over the 1,024-thread
-// limit).  V/Thi/Tlo/M and the per-slot x live in shared memory (20 B x W,
-// 40 KB at W = 2048); neighbour reads (k-1/k+1), the suffix-max /
-// prefix-min improver scan, arg-extremes and any/min/max are block
-// reductions through shared memory.  The snake runs per thread and reads
-// its 5+5 pool words straight from global memory (no VMEM page windows or
-// strip selects: per-lane loads are cheap here), first mismatch = ctz of
-// the XOR.  The trim test uses the arithmetic form (wave_pallas.py
-// trim_ok, from mscore/dscore), bit-equal to the 2^15-entry tables.
+// Bound: the bytes it must move (state in/out, one choice byte per slot and
+// one kbase word per live wave, the pool words the live lanes span) take
+// about 0.01 ms at n=512/W=256/G=384; the kernel is bound by the latency of
+// one wave, since a tube's waves form a dependent chain and a launch lasts
+// (its longest-living tube's waves) x (one wave's latency).
 //
-// Differences from the XLA twin, by design:
-// - recentering is gated per tube (a CTA cannot see the batch), so
+// Design, against that latency:
+// - one warp per tube, one tube per CTA (512 CTAs of 32 threads at n=512:
+//   about 4 per SM, all resident; 2 and 4 tubes per CTA timed the same),
+//   so no barrier is wider than a warp.  The lanes walk only the live band
+//   [low2, hgh2] in strides of 32, not all W slots, so a band of tens of
+//   diagonals costs one or two strides at any W (W = 512 and 2048 too);
+// - V/Thi/Tlo/M and the per-slot x live in the tube's shared memory.
+//   Pass 1 (choice, pick, snake, sentinels) keeps its results in registers
+//   and writes a stride back only after the next stride has read its
+//   neighbours, so every read sees the wave's input state.  Pass 2 (the
+//   suffix-max / prefix-min improver scan, the trim test, the WAVE_LAG
+//   prune) scans the band in the direction of the running max with
+//   __shfl_*_sync and a carry; each of the seven reductions of a wave is
+//   one redux instruction (__reduce_*_sync);
+// - the snake compares 128 bases a step (SK words a side, the first
+//   mismatch from the XOR's trailing or leading zero bit pairs), and the
+//   60-bit match window takes its whole shift once a snake ends, in closed
+//   form (equal to the reference's sub-shifts of at most 16);
+// - per-tube sequence windows of A and B (WIN words each, the Hopper form
+//   of the Pallas kernel's VMEM staging) in shared memory, filled with
+//   cp.async and refilled ahead in the direction of travel when the band's
+//   x- or y-range leaves them.  The snake's fetch reads a window when its
+//   SK+1 words lie inside, else global memory (a snake past the window:
+//   long exact repeats, lagging interior diagonals); word indices clamp to
+//   [0, P-1] on both paths, since a window holds pool[clamp(i)] at i;
+// - the choice row is built in shared memory and stored as 16-byte words,
+//   CH_NONE outside the band.
+//
+// On an H100 (chip_smoke.py) a wave takes about 1.5 us at n=512/W=256,
+// against about 7 us for a CTA per tube with a thread per slot, of which
+// the snake's global loads were 0.4 us and the block-wide barriers and
+// serial reductions the rest.
+//
+// Semantics carried over exactly (compare through canon_state): the int32
+// wraparound of wave_common.cuh; the arithmetic trim test (wave_pallas.py
+// trim_ok, bit-equal to the 2^15-entry tables); the descending-k running
+// max of best/trim; the sentinel clip; the WAVE_LAG prune; the over-band and
+// empty-band fallback flags.  Differences from the XLA twin, by design:
+// - recentering is gated per tube (a warp cannot see the batch), so
 //   slot-space state and the kbase log differ from the batch-gated twin;
-//   diagonal-space results are the same (compare through canon_state);
+//   diagonal-space results are the same;
 // - a tube stops at its last live wave; log rows after it are unwritten,
 //   and the dead-wave fixed point hgh = low - 1 is applied on exit.
-//
-// Bound: the bytes it must move (state in/out, one choice byte per slot
-// and one kbase word per live wave, the pool words the live lanes span)
-// are small; the kernel is latency-bound on its per-wave barriers (about
-// ten per wave) and on the dependent pool loads of the snake.  The design
-// keeps every per-wave intermediate in shared memory or registers, so the
-// only per-wave global traffic is the log row.
 #include "wave_common.cuh"
 
 using namespace wave;
 
-template <int SPT, bool FWD>
-__global__ void __launch_bounds__(1024)
+constexpr int WIN = 512;    // words per sequence window (8,192 bases)
+constexpr int SK = 8;       // words a snake step compares (128 bases)
+
+__device__ __forceinline__ void cp_async4(uint32_t* sdst,
+                                          const uint32_t* gsrc) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(sdst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gsrc)
+               : "memory");
+}
+
+// win[i] = pool[clamp(lo + i, 0, P-1)] for i < WIN; the caller waits
+__device__ __forceinline__ void fill_window(uint32_t* win,
+                                            const uint32_t* __restrict__ pool,
+                                            int P, long long lo, int lane) {
+  for (int i = lane; i < WIN; i += 32) {
+    long long g = lo + i;
+    g = g < 0 ? 0 : (g > P - 1 ? P - 1 : g);
+    cp_async4(win + i, pool + g);
+  }
+}
+
+// SK funnel-shifted 16-base words from base `start` of the sequence at
+// word offset `woff` (fetch64 of wave_common.cuh, widened), through a
+// window holding pool words from absolute index `wlo`
+__device__ __forceinline__ void fetchw(const uint32_t* __restrict__ pool,
+                                       int P, const uint32_t* win, int wlo,
+                                       int woff, int start,
+                                       uint32_t out[SK]) {
+  const int sh = (start & 15) << 1;
+  const long long base = (long long)woff + (start >> 4);
+  const long long r = base - wlo;
+  uint32_t ws[SK + 1];
+  if (r >= 0 && r <= WIN - (SK + 1)) {
+#pragma unroll
+    for (int k = 0; k <= SK; ++k) ws[k] = win[r + k];
+  } else {
+#pragma unroll
+    for (int k = 0; k <= SK; ++k) {
+      long long i = base + k;
+      i = i < 0 ? 0 : (i > P - 1 ? P - 1 : i);
+      ws[k] = __ldg(pool + i);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < SK; ++k) out[k] = __funnelshift_r(ws[k], ws[k + 1], sh);
+}
+
+// length of the matching run (<= 16*SK) at (x, y) in direction FWD: the
+// run of SK/4 snake_run (wave_common.cuh) steps of 64 bases while each
+// matches all 64
+template <bool FWD>
+__device__ __forceinline__ int snake_step(const uint32_t* __restrict__ pool,
+                                          int P, const uint32_t* wa, int alo,
+                                          const uint32_t* wb, int blo, int x,
+                                          int y, int aw, int alen, int bw,
+                                          int blen) {
+  uint32_t wA[SK], wB[SK];
+  int rk[SK], va, vb;
+  // the run up to the first mismatch as the least of the per-word runs
+  // (a word without a mismatch gives 16*SK), a tree of mins
+  if (FWD) {
+    va = clampi(wsub(alen, x), 0, 16 * SK);
+    vb = clampi(wsub(blen, y), 0, 16 * SK);
+    fetchw(pool, P, wa, alo, aw, x, wA);
+    fetchw(pool, P, wb, blo, bw, y, wB);
+    // from the bottom: trailing zero bit pairs
+#pragma unroll
+    for (int k = 0; k < SK; ++k) {
+      const uint32_t d = wA[k] ^ wB[k];
+      rk[k] = d ? 16 * k + ((__ffs((int)d) - 1) >> 1) : 16 * SK;
+    }
+  } else {
+    va = clampi(x, 0, 16 * SK);
+    vb = clampi(y, 0, 16 * SK);
+    fetchw(pool, P, wa, alo, aw, wsub(x, 16 * SK), wA);
+    fetchw(pool, P, wb, blo, bw, wsub(y, 16 * SK), wB);
+    // from the top: leading zero bit pairs
+#pragma unroll
+    for (int k = 0; k < SK; ++k) {
+      const uint32_t d = wA[k] ^ wB[k];
+      rk[k] = d ? 16 * (SK - 1 - k) + (__clz((int)d) >> 1) : 16 * SK;
+    }
+  }
+#pragma unroll
+  for (int h = SK / 2; h > 0; h >>= 1)
+#pragma unroll
+    for (int k = 0; k < h; ++k) rk[k] = min(rk[k], rk[k + h]);
+  int run = rk[0];
+  run = run < va ? run : va;
+  return run < vb ? run : vb;
+}
+
+// warp all-reduce: max (MX) or min
+template <bool MX>
+__device__ __forceinline__ int wred(int v) {
+  return MX ? __reduce_max_sync(FULL, v) : __reduce_min_sync(FULL, v);
+}
+
+// the word of choice bytes at byte offset b: the bytes in [lo, hi] from
+// `w`, CH_NONE elsewhere
+__device__ __forceinline__ uint32_t band_word(uint32_t w, int b, int lo,
+                                              int hi) {
+  const int l = clampi(lo - b, 0, 4), h = clampi(hi - b + 1, 0, 4);
+  const uint32_t mk = h <= l ? 0u
+                             : (uint32_t)(((1ull << (8 * h)) - 1ull)
+                                          & ~((1ull << (8 * l)) - 1ull));
+  return (w & mk) | (0x03030303u & ~mk);
+}
+
+// the tube's shared memory: V, Thi, Tlo, M, X [W] ints, the A and B
+// windows [WIN] words, the choice row [W] bytes
+__host__ __device__ constexpr size_t tube_smem(int W) {
+  return (size_t)(5 * W + 2 * WIN) * 4 + (size_t)W;
+}
+
+template <bool FWD>
+__global__ void __launch_bounds__(32)
 wave_chunk_kernel(const uint32_t* __restrict__ pool, int P,
                   const int* __restrict__ targs,
                   const int* __restrict__ Vi, const uint32_t* __restrict__ Thii,
@@ -43,19 +184,21 @@ wave_chunk_kernel(const uint32_t* __restrict__ pool, int P,
                   int* __restrict__ Mo, int* __restrict__ sco,
                   uint8_t* __restrict__ chlog, int* __restrict__ kblog, int N,
                   int W, int G, int PA, int mscore, int dscore) {
-  extern __shared__ int smem[];
-  int* sV = smem;
-  uint32_t* sThi = (uint32_t*)(smem + W);
-  uint32_t* sTlo = (uint32_t*)(smem + 2 * W);
-  int* sM = smem + 3 * W;
-  int* sX = smem + 4 * W;
-  int* sred = smem + 5 * W;   // 32 * 8 ints
-
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x;
   const int n = blockIdx.x;
-  const int tid = threadIdx.x;
+  int* sV = (int*)smem_raw;
+  uint32_t* sThi = (uint32_t*)(sV + W);
+  uint32_t* sTlo = sThi + W;
+  int* sM = (int*)(sTlo + W);
+  int* sX = sM + W;
+  uint32_t* winA = (uint32_t*)(sX + W);
+  uint32_t* winB = winA + WIN;
+  uint8_t* row = (uint8_t*)(winB + WIN);
+
   const int BAR = FWD ? -1 : 0x7FFFFFFF;
   const size_t rowoff = (size_t)n * W;
-  for (int s = tid; s < W; s += blockDim.x) {
+  for (int s = lane; s < W; s += 32) {
     sV[s] = Vi[rowoff + s];
     sThi[s] = Thii[rowoff + s];
     sTlo[s] = Tloi[rowoff + s];
@@ -71,7 +214,10 @@ wave_chunk_kernel(const uint32_t* __restrict__ pool, int P,
   int trimw = sc[SC_TRIMW], trims = sc[SC_TRIMS];
   bool alive = sc[SC_ALIVE] > 0, fall = sc[SC_FALL] > 0;
   int dif = sc[SC_DIF];
-  __syncthreads();
+  // absolute pool word index of each window's first word (the windows
+  // are filled by the first wave)
+  int alo = 0, blo = 0;
+  __syncwarp();
 
   int wi = 0;
   for (; wi < G && alive; ++wi) {
@@ -79,6 +225,8 @@ wave_chunk_kernel(const uint32_t* __restrict__ pool, int P,
     const int low2 = (wadd(kbase, low) - 1 >= minp) ? low - 1 : low;
     const int hgh2 = (wadd(kbase, hgh) + 1 <= maxp) ? hgh + 1 : hgh;
     const int dif2 = dif + 1;
+    const int slo = low2 > 0 ? low2 : 0, shi = hgh2 < W - 1 ? hgh2 : W - 1;
+    const int nit = shi >= slo ? ((shi - slo) >> 5) + 1 : 0;
     auto vr = [&](int t) -> int {
       if (t < 0 || t >= W || t < low2 || t > hgh2) return BAR;
       if ((t == low2 && low2 != low) || (t == hgh2 && hgh2 != hgh))
@@ -86,133 +234,222 @@ wave_chunk_kernel(const uint32_t* __restrict__ pool, int P,
       return sV[t];
     };
 
-    int c[SPT], xv[SPT], mv[SPT], excl[SPT];
-    uint32_t th[SPT], tl[SPT];
-    bool inb[SPT], as[SPT], bs[SPT];
-    uint8_t* crow = chlog + ((size_t)wi * N + n) * W;
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      const int s = tid * SPT + j;
-      inb[j] = s >= low2 && s <= hgh2;
-      const int am = vr(s - 1), ac = vr(s), ap = vr(s + 1);
-      bool take_p, take_m;
-      int c_pre;
-      if (FWD) {
-        take_p = (ac < am && am < ap) || (!(ac < am) && ac < ap);
-        take_m = ac < am && !(am < ap);
-        c_pre = take_p ? wadd(ap, 1) : (take_m ? wadd(am, 1) : wadd(ac, 2));
-      } else {
-        take_m = (ac > ap && ap > am) || (!(ac > ap) && ac > am);
-        take_p = ac > ap && !(ap > am);
-        c_pre = take_m ? wsub(am, 1) : (take_p ? wsub(ap, 1) : wsub(ac, 2));
+    // ---- windows: keep the band's x- and y-range (plus a fetch) inside,
+    // checked every 4th wave (placement only, in wrapping int32: a fetch
+    // outside a window reads global memory) ----
+    if ((wi & 3) == 0) {
+      const int amin = wsub(besta, FWD ? WAVE_LAG + 4 : 4);
+      const int amax = wadd(besta, FWD ? 4 : WAVE_LAG + 4);
+      const int kmin = wadd(kbase, low2), kmax = wadd(kbase, hgh2);
+      // bases a fetch touches: FWD [p, p + 16*SK + 16), reverse
+      // [p - 16*SK, p + 16)
+      const int lo_pad = FWD ? 0 : 16 * SK, hi_pad = FWD ? 16 * SK + 16 : 16;
+      const int al = wadd(aw, wsub(wadd(amin, kmin) >> 1, lo_pad) >> 4);
+      const int ah = wadd(aw, wadd(wadd(amax, kmax) >> 1, hi_pad) >> 4);
+      const int bl = wadd(bw, wsub(wsub(amin, kmax) >> 1, lo_pad) >> 4);
+      const int bh = wadd(bw, wadd(wsub(amax, kmin) >> 1, hi_pad) >> 4);
+      bool fill = false;
+      if (wi == 0 || al < alo || ah > wadd(alo, WIN - 1)) {
+        alo = FWD ? wsub(al, 8) : wsub(ah, WIN - 9);
+        fill_window(winA, pool, P, alo, lane);
+        fill = true;
       }
-      crow[s] = inb[j] ? (take_p ? CH_HIGH : (take_m ? CH_LOW : CH_DIAG))
-                       : CH_NONE;
-      const int src = take_p ? (s + 1 < W ? s + 1 : W - 1)
-                             : (take_m ? (s > 0 ? s - 1 : 0) : s);
-      uint32_t thi = sThi[src], tlo = sTlo[src];
-      int m = sM[src] - (int)((thi >> 28) & 1u);
-      thi = (thi << 1) | (tlo >> 31);
-      tlo = tlo << 1;
-      const int k = wadd(kbase, s);
-      int x = wadd(c_pre, k) >> 1;
-      if (inb[j]) {
+      if (wi == 0 || bl < blo || bh > wadd(blo, WIN - 1)) {
+        blo = FWD ? wsub(bl, 8) : wsub(bh, WIN - 9);
+        fill_window(winB, pool, P, blo, lane);
+        fill = true;
+      }
+      if (fill) {
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        __syncwarp();
+      }
+    }
+
+    // ---- pass 1: choice, pick, snake, sentinels (write-back one stride
+    // late, after the next stride has read its neighbours) ----
+    int cbest = BAR, aclip = FWD ? BIG : -BIG, bclip = FWD ? -BIG : BIG;
+    int pc = 0, pm = 0, ps = -1;
+    uint32_t ph = 0, pl = 0;
+    for (int it = 0; it < nit; ++it) {
+      const int s = slo + (it << 5) + lane;
+      const bool inb = s <= shi;
+      int c = 0, x = 0, m = 0;
+      uint32_t thi = 0, tlo = 0;
+      if (inb) {
+        const int am = vr(s - 1), ac = vr(s), ap = vr(s + 1);
+        bool take_p, take_m;
+        int c_pre;
+        if (FWD) {
+          take_p = (ac < am && am < ap) || (!(ac < am) && ac < ap);
+          take_m = ac < am && !(am < ap);
+          c_pre = take_p ? wadd(ap, 1) : (take_m ? wadd(am, 1) : wadd(ac, 2));
+        } else {
+          take_m = (ac > ap && ap > am) || (!(ac > ap) && ac > am);
+          take_p = ac > ap && !(ap > am);
+          c_pre = take_m ? wsub(am, 1) : (take_p ? wsub(ap, 1) : wsub(ac, 2));
+        }
+        row[s] = take_p ? CH_HIGH : (take_m ? CH_LOW : CH_DIAG);
+        const int src = take_p ? (s + 1 < W ? s + 1 : W - 1)
+                               : (take_m ? (s > 0 ? s - 1 : 0) : s);
+        thi = sThi[src];
+        tlo = sTlo[src];
+        m = sM[src] - (int)((thi >> 28) & 1u);
+        thi = (thi << 1) | (tlo >> 31);
+        tlo = tlo << 1;
+        const int k = wadd(kbase, s);
+        x = wadd(c_pre, k) >> 1;
+        int R = 0;
         for (;;) {
-          const int run = snake_run<FWD>(pool, P, x, wsub(x, k), aw, alen,
-                                         bw, blen);
-          for (int kk = 0; kk < 4; ++kk) {
-            int r = run - 16 * kk;
-            r = r < 0 ? 0 : (r > 16 ? 16 : r);
-            if (r > 0) {
-              const uint32_t ones = (1u << r) - 1u;
-              const uint32_t ob = (thi >> (29 - r)) & ones;
-              m += r - __popc(ob);
-              thi = (thi << r) | (tlo >> (32 - r));
-              tlo = (tlo << r) | ones;
-            }
-          }
+          const int run = snake_step<FWD>(pool, P, winA, alo, winB, blo, x,
+                                          wsub(x, k), aw, alen, bw, blen);
+          R += run;
           x = FWD ? wadd(x, run) : wsub(x, run);
-          if (run != 64) break;
+          if (run != 16 * SK) break;
         }
+        // the match window after R matches, in closed form: the R bits
+        // shifted past bit 60 (sub-shifts of at most 16, each counting the
+        // zeros that leave, align.c:698-701; the ones shifted in count
+        // none), then the shift itself
+        {
+          const uint64_t w60 = ((uint64_t)thi << 32) | tlo;
+          const int rc = R < 61 ? R : 61;
+          const uint64_t out = (w60 >> (61 - rc)) & ((1ull << rc) - 1ull);
+          m += rc - __popcll(out);
+          const uint64_t nw = R >= 64 ? ~0ull
+                                      : (w60 << R) | ((1ull << R) - 1ull);
+          thi = (uint32_t)(nw >> 32);
+          tlo = (uint32_t)nw;
+        }
+        bool as, bs;
+        sentinels<FWD>(x, k, alen, blen, true, bs, as);
+        c = wsub((int)((unsigned)x << 1), k);
+        sX[s] = x;
+        cbest = op2<FWD>(cbest, c);
+        if (as) aclip = FWD ? min(aclip, s) : max(aclip, s);
+        if (bs) bclip = FWD ? max(bclip, s) : min(bclip, s);
       }
-      sentinels<FWD>(x, k, alen, blen, inb[j], bs[j], as[j]);
-      c[j] = wsub((int)((unsigned)x << 1), k);
-      xv[j] = x;
-      th[j] = thi;
-      tl[j] = tlo;
-      mv[j] = m;
+      __syncwarp();
+      if (ps >= 0) {
+        sV[ps] = pc;
+        sThi[ps] = ph;
+        sTlo[ps] = pl;
+        sM[ps] = pm;
+      }
+      ps = inb ? s : -1;
+      pc = c;
+      ph = thi;
+      pl = tlo;
+      pm = m;
     }
-    if (tid == 0) kblog[(size_t)wi * N + n] = kbase;
+    if (ps >= 0) {
+      sV[ps] = pc;
+      sThi[ps] = ph;
+      sTlo[ps] = pl;
+      sM[ps] = pm;
+    }
+    if (lane == 0) kblog[(size_t)wi * N + n] = kbase;
+    __syncwarp();
+    cbest = wred<FWD>(cbest);
+    aclip = wred<!FWD>(aclip);
+    bclip = wred<FWD>(bclip);
+    const bool hit = aclip != (FWD ? BIG : -BIG) || bclip != (FWD ? -BIG : BIG);
 
-    // ---- best / trim updates (descending-k running max semantics) ----
-    int cm[SPT];
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      cm[j] = inb[j] ? c[j] : BAR;
-      sX[tid * SPT + j] = xv[j];
+    // ---- the choice row: the band's bytes from shared memory, CH_NONE
+    // outside [slo, shi] ----
+    {
+      uint8_t* crow = chlog + ((size_t)wi * N + n) * W;
+      for (int q = lane; q < (W >> 4); q += 32) {
+        const uint4 r = ((const uint4*)row)[q];
+        ((uint4*)crow)[q] = make_uint4(band_word(r.x, 16 * q, slo, shi),
+                                       band_word(r.y, 16 * q + 4, slo, shi),
+                                       band_word(r.z, 16 * q + 8, slo, shi),
+                                       band_word(r.w, 16 * q + 12, slo, shi));
+      }
     }
-    int cbest;
-    block_scan_excl<SPT, FWD>(cm, excl, cbest, BAR, sred);
+
     const bool better = FWD ? cbest > besta : cbest < besta;
-
-    int imp_c[SPT], et_c[SPT];
-    int red[8];
-    red[0] = BAR; red[1] = BAR; red[2] = 0; red[3] = BAR; red[4] = 0;
-    red[5] = 0;
-    red[6] = FWD ? BIG : -BIG;    // aclip
-    red[7] = FWD ? -BIG : BIG;    // bclip
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      const int s = tid * SPT + j;
-      const bool improver =
-          inb[j] && (FWD ? c[j] > op2<true>(besta, excl[j])
-                         : c[j] < op2<false>(besta, excl[j]));
-      imp_c[j] = improver ? c[j] : BAR;
-      const bool el = improver && mv[j] >= PA;
-      bool tok = false;
-      if (el) {
-        const uint32_t b15 = tl[j] & 0x7FFFu;
-        const uint32_t b30 = ((tl[j] >> 15) | (th[j] << 17)) & 0x7FFFu;
-        int s15 = 0, m15 = 0, s30 = 0, m30 = 0;
-        for (int bit = 0; bit < TRIM_LEN; ++bit) {
-          m15 = max(m15, s15);
-          m30 = max(m30, s30);
-          s15 += ((b15 >> (TRIM_LEN - 1 - bit)) & 1u) ? mscore : -dscore;
-          s30 += ((b30 >> (TRIM_LEN - 1 - bit)) & 1u) ? mscore : -dscore;
-        }
-        tok = (s15 - m15 >= 0) && (s30 - m30 + s15 >= 0);
-      }
-      const bool et = el && tok;
-      et_c[j] = et ? c[j] : BAR;
-      red[0] = op2<FWD>(red[0], imp_c[j]);
-      red[1] = op2<FWD>(red[1], el ? c[j] : BAR);
-      red[2] |= el;
-      red[3] = op2<FWD>(red[3], et_c[j]);
-      red[4] |= et;
-      red[5] |= (as[j] || bs[j]);
-      if (as[j]) red[6] = FWD ? min(red[6], s) : max(red[6], s);
-      if (bs[j]) red[7] = FWD ? max(red[7], s) : min(red[7], s);
-    }
-    // max/min per value: bit i set = max
-    if (FWD)
-      block_reduce<8, 0b10111111u>(red, sred);
-    else
-      block_reduce<8, 0b01110100u>(red, sred);
-    const int bmax = red[0], l_val = red[1], t_val = red[3];
-    const bool el_any = red[2] > 0, et_any = red[4] > 0, hit = red[5] > 0;
-    const int aclip = red[6], bclip = red[7];
-
-    int sl[2] = {W, W};
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      const int s = tid * SPT + j;
-      if (imp_c[j] == bmax) sl[0] = min(sl[0], s);
-      if (et_c[j] == t_val) sl[1] = min(sl[1], s);
-    }
-    block_reduce<2, 0u>(sl, sred);
-    const int bslot = sl[0], tslot = sl[1];
-
     const int besta2 = better ? cbest : besta;
+    // the clip's band (its `more` needs bestx2, from pass 2)
+    int low3 = low2, hgh3 = hgh2;
+    bool more;
+    clip_band<FWD>(hit, aclip, bclip, besta2, bestx, alen, blen, low3, hgh3,
+                   more);
+    const int thr = FWD ? wsub(besta2, WAVE_LAG) : wadd(besta2, WAVE_LAG);
+
+    // ---- pass 2: improver scan (descending k for FWD), trim test, prune.
+    // An improver beats every slot above it (FWD; below it in reverse),
+    // so improvers' values strictly fall with k in the scan's direction:
+    // the extreme of any subset of them (improvers, el, et) sits at its
+    // lowest slot (FWD) or its highest (reverse).  An improver's value is
+    // never BAR (besta starts at anti >= 0), so these are the first
+    // indices of the row extremes that build_forward_chunk takes. ----
+    const int NOSLOT = FWD ? W : -1;
+    int carry = BAR;
+    int bsl = NOSLOT, lsl = NOSLOT, tsl = NOSLOT;
+    int okhi = -BIG, oklo = BIG;
+    for (int j = 0; j < nit; ++j) {
+      const int it = FWD ? nit - 1 - j : j;
+      const int s = slo + (it << 5) + lane;
+      const bool inb = s <= shi;
+      const int c = inb ? sV[s] : BAR;
+      int inc = c;
+      int ex;
+      if (FWD) {
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int o = __shfl_down_sync(FULL, inc, d);
+          if (lane + d < 32) inc = op2<true>(inc, o);
+        }
+        ex = __shfl_down_sync(FULL, inc, 1);
+        if (lane == 31) ex = BAR;
+        ex = op2<true>(ex, carry);
+        carry = op2<true>(carry, __shfl_sync(FULL, inc, 0));
+      } else {
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int o = __shfl_up_sync(FULL, inc, d);
+          if (lane >= d) inc = op2<false>(inc, o);
+        }
+        ex = __shfl_up_sync(FULL, inc, 1);
+        if (lane == 0) ex = BAR;
+        ex = op2<false>(ex, carry);
+        carry = op2<false>(carry, __shfl_sync(FULL, inc, 31));
+      }
+      if (!inb) continue;
+      const bool improver = FWD ? c > op2<true>(besta, ex)
+                                : c < op2<false>(besta, ex);
+      if (improver) {
+        bsl = op2<!FWD>(bsl, s);
+        if (sM[s] >= PA) {
+          lsl = op2<!FWD>(lsl, s);
+          const uint32_t th = sThi[s], tl = sTlo[s];
+          const uint32_t b15 = tl & 0x7FFFu;
+          const uint32_t b30 = ((tl >> 15) | (th << 17)) & 0x7FFFu;
+          int s15 = 0, m15 = 0, s30 = 0, m30 = 0;
+          for (int bit = 0; bit < TRIM_LEN; ++bit) {
+            m15 = max(m15, s15);
+            m30 = max(m30, s30);
+            s15 += ((b15 >> (TRIM_LEN - 1 - bit)) & 1u) ? mscore : -dscore;
+            s30 += ((b30 >> (TRIM_LEN - 1 - bit)) & 1u) ? mscore : -dscore;
+          }
+          if ((s15 - m15 >= 0) && (s30 - m30 + s15 >= 0))
+            tsl = op2<!FWD>(tsl, s);
+        }
+      }
+      if ((FWD ? c >= thr : c <= thr) && s >= low3 && s <= hgh3) {
+        okhi = max(okhi, s);
+        oklo = min(oklo, s);
+      }
+    }
+    const int bslot = wred<!FWD>(bsl);
+    const int lslot = wred<!FWD>(lsl);
+    const int tslot = wred<!FWD>(tsl);
+    const int hgh4a = __reduce_max_sync(FULL, okhi);
+    const int low4a = __reduce_min_sync(FULL, oklo);
+    const bool el_any = lslot != NOSLOT, et_any = tslot != NOSLOT;
+    const int l_val = el_any ? sV[lslot] : BAR;
+    const int t_val = et_any ? sV[tslot] : BAR;
+
     const int bestx2 = better ? sX[bslot] : bestx;
     const bool l_upd = el_any && (FWD ? l_val > besta : l_val < besta);
     const int lasta2 = l_upd ? l_val : lasta;
@@ -224,40 +461,13 @@ wave_chunk_kernel(const uint32_t* __restrict__ pool, int P,
       trimw = dif2;
       trims = wadd(kbase, tslot);
     }
-
-    // ---- write back (in-band slots only) ----
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      if (!inb[j]) continue;
-      const int s = tid * SPT + j;
-      sV[s] = c[j];
-      sThi[s] = th[j];
-      sTlo[s] = tl[j];
-      sM[s] = mv[j];
-    }
-
-    // ---- sentinel clip, WAVE_LAG prune ----
-    int low3 = low2, hgh3 = hgh2;
-    bool more;
+    low3 = low2;
+    hgh3 = hgh2;
     clip_band<FWD>(hit, aclip, bclip, besta2, bestx2, alen, blen, low3, hgh3,
                    more);
-    const int thr = FWD ? wsub(besta2, WAVE_LAG) : wadd(besta2, WAVE_LAG);
-    int pr[3] = {0, -BIG, BIG};
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      const int s = tid * SPT + j;
-      const bool ok = inb[j] && (FWD ? c[j] >= thr : c[j] <= thr) &&
-                      s >= low3 && s <= hgh3;
-      if (ok) {
-        pr[0] = 1;
-        pr[1] = max(pr[1], s);
-        pr[2] = min(pr[2], s);
-      }
-    }
-    block_reduce<3, 0b011u>(pr, sred);
-    const bool anyok = pr[0] > 0;
-    int hgh4 = anyok ? pr[1] : low3 - 1;
-    int low4 = anyok ? pr[2] : low3;
+    const bool anyok = hgh4a >= low4a;
+    int hgh4 = anyok ? hgh4a : low3 - 1;
+    int low4 = anyok ? low4a : low3;
     const bool empty = !anyok;
 
     // ---- liveness / budgets ----
@@ -269,34 +479,30 @@ wave_chunk_kernel(const uint32_t* __restrict__ pool, int P,
     fall = fall || over || (going && empty);
     const bool alive2 = going && !over && !empty;
 
-    // ---- recenter, gated per tube ----
+    // ---- recenter, gated per tube: an in-place shift of the W slots,
+    // in strides ordered so no source is overwritten before it is read ----
     if (alive2 && (low4 <= 2 || hgh4 >= W - 3)) {
       const int shift = ((low4 + hgh4) >> 1) - W / 2;
-      int nv[SPT], nm[SPT];
-      uint32_t nh[SPT], nl[SPT];
-#pragma unroll
-      for (int j = 0; j < SPT; ++j) {
-        const int src = tid * SPT + j + shift;
+      for (int q = 0; q < W; q += 32) {
+        const int s = (shift > 0 ? q : W - 32 - q) + lane;
+        const int src = s + shift;
         const bool in = src >= 0 && src < W;
-        nv[j] = in ? sV[src] : BAR;
-        nh[j] = in ? sThi[src] : 0u;
-        nl[j] = in ? sTlo[src] : 0u;
-        nm[j] = in ? sM[src] : 0;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < SPT; ++j) {
-        const int s = tid * SPT + j;
-        sV[s] = nv[j];
-        sThi[s] = nh[j];
-        sTlo[s] = nl[j];
-        sM[s] = nm[j];
+        const int nv = in ? sV[src] : BAR;
+        const uint32_t nh = in ? sThi[src] : 0u;
+        const uint32_t nl = in ? sTlo[src] : 0u;
+        const int nm = in ? sM[src] : 0;
+        __syncwarp();
+        sV[s] = nv;
+        sThi[s] = nh;
+        sTlo[s] = nl;
+        sM[s] = nm;
+        __syncwarp();
       }
       kbase += shift;
       low4 -= shift;
       hgh4 -= shift;
     }
-    __syncthreads();
+    __syncwarp();
 
     low = low4;
     hgh = hgh4;
@@ -309,13 +515,13 @@ wave_chunk_kernel(const uint32_t* __restrict__ pool, int P,
   // a dead tube's band reaches the fixed point of a dead wave
   if (wi < G) hgh = low - 1;
 
-  for (int s = tid; s < W; s += blockDim.x) {
+  for (int s = lane; s < W; s += 32) {
     Vo[rowoff + s] = sV[s];
     Thio[rowoff + s] = sThi[s];
     Tloo[rowoff + s] = sTlo[s];
     Mo[rowoff + s] = sM[s];
   }
-  if (tid == 0) {
+  if (lane == 0) {
     int* o = sco + (size_t)n * NSC;
     o[SC_KBASE] = kbase; o[SC_LOW] = low; o[SC_HGH] = hgh;
     o[SC_BESTA] = besta; o[SC_BESTX] = bestx; o[SC_LASTA] = lasta;
@@ -326,15 +532,15 @@ wave_chunk_kernel(const uint32_t* __restrict__ pool, int P,
   }
 }
 
-template <int SPT, bool FWD>
+template <bool FWD>
 static cudaError_t launch(const uint32_t* pool, int P, const int* targs,
                           const int* V, const uint32_t* Thi,
                           const uint32_t* Tlo, const int* M, const int* sc,
                           int* Vo, uint32_t* Thio, uint32_t* Tloo, int* Mo,
                           int* sco, uint8_t* chlog, int* kblog, int N, int W,
                           int G, int PA, int ms, int ds, cudaStream_t st) {
-  const size_t shm = (size_t)(5 * W + 32 * 8) * sizeof(int);
-  wave_chunk_kernel<SPT, FWD><<<N, W / SPT, shm, st>>>(
+  const size_t shm = tube_smem(W);   // 47,104 B at W = 2048
+  wave_chunk_kernel<FWD><<<N, 32, shm, st>>>(
       pool, P, targs, V, Thi, Tlo, M, sc, Vo, Thio, Tloo, Mo, sco, chlog,
       kblog, N, W, G, PA, ms, ds);
   return cudaGetLastError();
@@ -348,34 +554,11 @@ extern "C" int wave_chunk_launch(const void* pool, int P, const void* targs,
                                  void* chlog, void* kblog, int N, int W,
                                  int G, int fwd, int PA, int ms, int ds,
                                  void* stream) {
-  auto p = (const uint32_t*)pool;
-  auto t = (const int*)targs;
-  auto v = (const int*)V;
-  auto h = (const uint32_t*)Thi;
-  auto l = (const uint32_t*)Tlo;
-  auto m = (const int*)M;
-  auto s = (const int*)sc;
-  auto st = (cudaStream_t)stream;
   if (N == 0) return 0;
-  cudaError_t e;
-  if (W > 1024) {
-    e = fwd ? launch<2, true>(p, P, t, v, h, l, m, s, (int*)Vo,
-                              (uint32_t*)Thio, (uint32_t*)Tloo, (int*)Mo,
-                              (int*)sco, (uint8_t*)chlog, (int*)kblog, N, W,
-                              G, PA, ms, ds, st)
-            : launch<2, false>(p, P, t, v, h, l, m, s, (int*)Vo,
-                               (uint32_t*)Thio, (uint32_t*)Tloo, (int*)Mo,
-                               (int*)sco, (uint8_t*)chlog, (int*)kblog, N, W,
-                               G, PA, ms, ds, st);
-  } else {
-    e = fwd ? launch<1, true>(p, P, t, v, h, l, m, s, (int*)Vo,
-                              (uint32_t*)Thio, (uint32_t*)Tloo, (int*)Mo,
-                              (int*)sco, (uint8_t*)chlog, (int*)kblog, N, W,
-                              G, PA, ms, ds, st)
-            : launch<1, false>(p, P, t, v, h, l, m, s, (int*)Vo,
-                               (uint32_t*)Thio, (uint32_t*)Tloo, (int*)Mo,
-                               (int*)sco, (uint8_t*)chlog, (int*)kblog, N, W,
-                               G, PA, ms, ds, st);
-  }
-  return (int)e;
+  auto f = fwd ? launch<true> : launch<false>;
+  return (int)f((const uint32_t*)pool, P, (const int*)targs, (const int*)V,
+                (const uint32_t*)Thi, (const uint32_t*)Tlo, (const int*)M,
+                (const int*)sc, (int*)Vo, (uint32_t*)Thio, (uint32_t*)Tloo,
+                (int*)Mo, (int*)sco, (uint8_t*)chlog, (int*)kblog, N, W, G,
+                PA, ms, ds, (cudaStream_t)stream);
 }

@@ -574,6 +574,9 @@ def wave_chunk(pool, targs, st, spec, direction, G, logs=None):
         ch, kb = logs[0][:G], logs[1][:G]
         _check(ch, torch.uint8, (G, N, W), "choice log")
         _check(kb, torch.int32, (G, N), "kbase log")
+    if ch.data_ptr() % 16:
+        raise ValueError("wave_chunk: the choice log must be 16-byte "
+                         "aligned (the kernel stores 16-byte words)")
     out = [torch.empty_like(st[j]) for j in range(4)]
     sco = torch.empty_like(sc)
     lib = build_kernels()["wave_chunk"]

@@ -3,9 +3,12 @@
 
 - the plain stepper against ops/wave.py build_forward_chunk (XLA), both
   directions, 3 chunks, slot space (all 18 state entries, choice and band
-  logs);
+  logs), on three kinds of pair: 10% mutated; a 12 kb exact copy that one
+  wave's snake runs through (past the CUDA stepper's 8,192-base sequence
+  window); tubes anchored within 64 bases of a sequence's start or end;
 - plain wave-0 against host_wave0;
-- the plain walk against a scalar walk;
+- the plain walk against a scalar walk, on a random log and on the logs
+  the plain stepper wrote;
 - canon_state: per-tube and batch-wide recentering give one form;
 - the pool-tail fetch case.
 """
@@ -59,16 +62,48 @@ def _assert_state(ref, got, where):
         assert np.array_equal(a, b), f"{where}: {NAMES[i]}"
 
 
-@pytest.mark.parametrize("direction", [+1, -1])
-def test_plain_chunk_matches_xla(direction):
+def _kind_pool(kind, n, seed=7):
+    """(pool, anti) for the stepper tests.  ``mutated``: 30 kb, 10% mutated
+    with indels.  ``exact``: B is A with 10% substitutions outside
+    [8,000, 20,000), an exact copy inside; half the tubes are anchored just
+    before that stretch, half just after, so in either direction a wave's
+    snake runs through 12 kb.  ``ends``: 4 kb with 10% substitutions, tubes
+    anchored within 64 bases of the sequences' start or end."""
+    if kind == "mutated":
+        anti = [2 * (8000 + 137 * i) for i in range(n)]
+        return _pair_pool(seed), np.asarray(anti, np.int32)
+    rng = np.random.default_rng(seed)
+    L = 30000 if kind == "exact" else 4000
+    A = rng.integers(0, 4, L).astype(np.uint8)
+    B = A.copy()
+    sub = rng.random(L) < 0.10
+    if kind == "exact":
+        sub[8000:20000] = False
+    B[sub] = (B[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    i = np.arange(n)
+    if kind == "exact":
+        x0 = np.where(i % 2 == 0, 7700 + 7 * i, 20300 - 7 * i)
+    else:
+        x0 = np.where(i % 2 == 0, 10 + 3 * (i // 2), L - 10 - 3 * (i // 2))
+    return (jseqpack.SeqPool.build({"a": A, "b": B}),
+            (2 * x0).astype(np.int32))
+
+
+@pytest.mark.parametrize("kind,direction", [
+    pytest.param("mutated", +1, id="1"),
+    pytest.param("mutated", -1, id="-1"),
+    pytest.param("exact", +1, id="exact+1"),
+    pytest.param("exact", -1, id="exact-1"),
+    pytest.param("ends", +1, id="ends+1"),
+    pytest.param("ends", -1, id="ends-1")])
+def test_plain_chunk_matches_xla(kind, direction):
     import jax.numpy as jnp
-    pool = _pair_pool(7)
     spec = JAlignSpec(0.7, 100, False, (0.25, 0.25, 0.25, 0.25))
     tspec = AlignSpec(0.7, 100, False, (0.25, 0.25, 0.25, 0.25))
     cfg = jwave.WaveConfig(n=32, w=256, chunk=24, max_chunks=64)
     n = cfg.n
+    pool, anti = _kind_pool(kind, n)
     targs = _targs(pool, n)
-    anti = np.asarray([2 * (8000 + 137 * i) for i in range(n)], np.int32)
     w0 = jwave.build_wave0(cfg, direction)
     xla_chunk, _ = jwave.build_forward_chunk(
         cfg, spec.ave_path, np.asarray(spec.table), np.asarray(spec.score),
@@ -143,6 +178,15 @@ def _scalar_walk(ch, kb, trim_diag, trim_wave):
     return D
 
 
+def _check_walk(ch, kb, trim_diag, trim_wave):
+    D_ref = _scalar_walk(ch, kb, trim_diag, trim_wave)
+    d0, D = wk.backtrack_walk(torch.as_tensor(ch), torch.as_tensor(kb),
+                              torch.as_tensor(trim_diag),
+                              torch.as_tensor(trim_wave))
+    assert np.array_equal(d0.numpy(), D_ref[0])
+    assert np.array_equal(D.numpy(), D_ref[1:])
+
+
 def test_plain_walk_matches_scalar():
     rng = np.random.default_rng(3)
     G, N, W = 48, 32, 256
@@ -150,12 +194,28 @@ def test_plain_walk_matches_scalar():
     kb = rng.integers(-40, 40, (G, N)).astype(np.int32)
     trim_diag = rng.integers(-100, 100, N).astype(np.int32)
     trim_wave = rng.integers(0, G + 1, N).astype(np.int32)
-    D_ref = _scalar_walk(ch, kb, trim_diag, trim_wave)
-    d0, D = wk.backtrack_walk(torch.as_tensor(ch), torch.as_tensor(kb),
-                              torch.as_tensor(trim_diag),
-                              torch.as_tensor(trim_wave))
-    assert np.array_equal(d0.numpy(), D_ref[0])
-    assert np.array_equal(D.numpy(), D_ref[1:])
+    _check_walk(ch, kb, trim_diag, trim_wave)
+
+
+@pytest.mark.parametrize("direction", [+1, -1])
+def test_plain_walk_matches_scalar_on_chunk_logs(direction):
+    """The walk over the choice and kbase logs the plain stepper wrote,
+    from the state's trim diagonal and trim wave (the wave program's
+    inputs), against the scalar walk."""
+    pool = _pair_pool(13)
+    spec = AlignSpec(0.7, 100, False, (0.25, 0.25, 0.25, 0.25))
+    n, W, G = 32, 256, 48
+    tpool = convert.pool_from_numpy(pool.words, "cpu")
+    tt = convert.targs_from_numpy(_targs(pool, n), "cpu")
+    anti = torch.as_tensor([2 * (9000 + 173 * i) for i in range(n)],
+                           dtype=torch.int32)
+    dg = torch.full((n,), -20, dtype=torch.int32)
+    st = wk.wave0(tpool, tt, dg, -dg, anti, torch.ones(n, dtype=torch.int32),
+                  W, direction)
+    st, ch, band = wk.chunk_plain(tpool, tt, st, spec, direction, G)
+    assert int(st[13].min()) > 0     # every tube trimmed past wave 0
+    _check_walk(ch.numpy(), band[:, :, 2].contiguous().numpy(),
+                st[14].numpy(), st[13].numpy())
 
 
 def _recenter_per_tube(st, W):

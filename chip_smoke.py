@@ -1,10 +1,10 @@
 """Chip smoke test of the PyTorch/CUDA port (fastga_tpu_torch) on one GPU.
 
     python3 chip_smoke.py                   # every phase, one card
-    python3 chip_smoke.py --compare DIR     # wave kernel times: DIR (an
-                                            # unpacked earlier commit) and
-                                            # this checkout, in turns
-    python3 chip_smoke.py --time-wave DIR   # one tree's wave kernel times
+    python3 chip_smoke.py --compare DIR     # kernel times: DIR (an unpacked
+                                            # earlier commit) and this
+                                            # checkout, in turns
+    python3 chip_smoke.py --time-wave DIR   # one tree's kernel times
 
 Phases (every one runs; any failure exits non-zero before the summary):
 1. environment: the card (nvidia-smi name and power limit), torch and CUDA
@@ -16,11 +16,15 @@ Phases (every one runs; any failure exits non-zero before the summary):
    a 20 kb exact repeat and on one anchored at sequence ends, compared
    through canon_state; the n=64 long lane at G=6,144 (one launch equal to
    16 launches of 384, the first and last equal to the plain stepper);
-   wave0 and backtrack_walk bit for bit, the walk on a random log and on
-   the logs wave_chunk wrote; with kernel ms (wave_chunk also at G=1,536),
-   live waves (max, mean) and us a wave, plain ms and the floor (the
-   larger of bytes over HBM rate and integer operations over the float32
-   peak);
+   wave0 bit for bit at n=512/W=256, on the long lane's batch, at W=512
+   and W=2048, on bands of up to W-1 and past W diagonals, on the
+   exact-repeat and sequence-end batches and with dead rows (valid = 0,
+   some with wide bands), timed beside its launch floor (an empty kernel
+   at its grid); backtrack_walk
+   bit for bit on a random log and on the logs wave_chunk wrote; with
+   kernel ms (wave_chunk also at G=1,536), live waves (max, mean) and us a
+   wave, plain ms and the floor (the larger of bytes over HBM rate and
+   integer operations over the float32 peak);
 3. the rescue lanes on the card: BatchAligner items that exhaust their
    wave budget or overflow the W=256 band go to the W=512 lane and must
    equal the exact scalar engine;
@@ -32,14 +36,17 @@ Phases (every one runs; any failure exits non-zero before the summary):
    lowered below its seed bucket), equal to the monolithic run;
 5. the main path on the repeat-rich scenario (24 Mbp per side): 22,902,602
    seeds, 99,999 tubes, 92,988 alignments covering 187,735,625 bp, the
-   wave kernels' launches by shape, then a second run under torch.profiler
-   (CUDA activity only) for each kernel's device time and count;
+   int64 coverage sum run once on fused_scan, the wave kernels' launches
+   by shape, then a second run under torch.profiler (CUDA activity only)
+   for each kernel's device time and count, with no cummax kernel;
 6. merge_path and fused_scan against their plain versions, bit for bit on
    every row, on the inputs the main path gave them (the uniform
    merge_seeds merge, the repeat-rich chain merge, every scan spec either
-   run called, in both directions) and at small and odd shapes, with
-   kernel ms, plain ms, the byte bound and a yardstick that computes less
-   (torch.sort of the first key, torch.cumsum of the channels);
+   run called, the int64 coverage sum included, in both directions) and at
+   odd shapes (the scan tile's edges, more than 10,000 tiles, a misaligned
+   view, int64 sums past 2^31), with kernel ms, plain ms, the byte bound
+   and a yardstick that computes less (torch.sort of the first key,
+   torch.cumsum of the channels);
 7. exactness: a small mutated pair with an inversion through the card path
    and the port's exact scalar engine (engine="ref") gives equal records;
 8. the device busy share of the uniform run under torch.profiler (its
@@ -226,11 +233,24 @@ def bound(nbytes, nops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def check_wave0(n, W, seed, direction, reps=20):
+def check_wave0(n, W, seed, direction, kind="plain", widen=0, dead=0,
+                timed=False, reps=50):
+    """wave0 against wave0_plain, bit for bit, on a seeded batch (``widen``
+    moves each tube's dgmin down and dgmax up by that much: bands wider
+    than W; ``dead``: valid = 0 on every dead-th tube from the first, dead
+    rows).  ``timed``: kernel ms (queued events), the same events unqueued
+    (the host's launch work), the launch floor (an empty kernel at wave0's
+    grid), plain ms and the bound."""
+    import ctypes
+
     import torch
 
-    from fastga_tpu_torch.ops import wave_kernels as wk
-    pool, targs, (dgmin, dgmax, anti, valid) = seeded_batch(n, W, seed)
+    from fastga_tpu_torch.ops import cuda_build, wave_kernels as wk
+    pool, targs, (dgmin, dgmax, anti, valid) = seeded_batch(n, W, seed, kind)
+    dgmin, dgmax = dgmin - widen, dgmax + widen
+    if dead:
+        valid = valid.clone()
+        valid[::dead] = 0
     st_k = wk.wave0(pool, targs, dgmin, dgmax, anti, valid, W, direction)
     st_p = wk.wave0_plain(pool, targs, dgmin, dgmax, anti, valid, W,
                           direction)
@@ -239,23 +259,28 @@ def check_wave0(n, W, seed, direction, reps=20):
     for a, b in zip(st_k, st_p):
         if not torch.equal(a, b):
             err = max(err, int((a.long() - b.long()).abs().max()))
-    ms = cuda_ms(lambda: wk.wave0(pool, targs, dgmin, dgmax, anti, valid, W,
-                                  direction), reps, windows=5)
-    # the same events without the spin kernel: the host's launch work
-    call_ms = cuda_ms(lambda: wk.wave0(pool, targs, dgmin, dgmax, anti,
-                                       valid, W, direction), reps, windows=5,
-                      queued=False)
-    plain_ms = cuda_ms(lambda: wk.wave0_plain(
+    r = dict(err=err, ms=None, plain_ms=None, bound_ms=None, bound_by=None)
+    if not timed:
+        return r
+
+    def call():
+        return wk.wave0(pool, targs, dgmin, dgmax, anti, valid, W, direction)
+    r["ms"] = cuda_ms(call, reps, windows=5)
+    r["call_ms"] = cuda_ms(call, reps, windows=5, queued=False)
+    lib = cuda_build.build_kernels()["wave0"]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    r["floor_ms"] = cuda_ms(lambda: lib.wave0_floor_launch(
+        ctypes.c_int(n), ctypes.c_int(W), stream), reps, windows=5)
+    r["plain_ms"] = cuda_ms(lambda: wk.wave0_plain(
         pool, targs, dgmin, dgmax, anti, valid, W, direction), 2)
-    # bytes: the ten tube columns, the pool words the band snakes span, the
-    # state written
+    # bytes: the eight tube columns read, the pool words the band snakes
+    # span, the state written
     x_span = (st_k[8].double() - anti.double() / 2).abs().cpu().numpy()
     span = float(2 * np.ceil((x_span + W + 80) / 16).sum() * 4)
-    nbytes = 10 * n * 4 + span + n * W * 16 + n * 16 * 4
+    nbytes = 8 * n * 4 + span + n * W * 16 + n * 16 * 4
     slots = int((dgmax - dgmin + 1).clamp(min=0).sum())
-    bms, by = bound(nbytes, slots * OPS_WAVE0_SLOT)
-    return dict(err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by)
+    r["bound_ms"], r["bound_by"] = bound(nbytes, slots * OPS_WAVE0_SLOT)
+    return r
 
 
 def canon_diff(a, b):
@@ -445,12 +470,31 @@ def phase_kernels(spec):
     rows = {}
     out = {}
     for d in (+1, -1):
-        r = check_wave0(512, 256, 101, d)
+        r = check_wave0(512, 256, 101, d, timed=True)
         log(f"wave0 dir={d:+d} n=512 W=256: max_abs_err={r['err']} "
             f"kernel {r['ms']:.4f} ms (with the host's launch work "
-            f"{r['call_ms']:.4f} ms) plain {r['plain_ms']:.3f} ms "
+            f"{r['call_ms']:.4f} ms) launch floor "
+            f"{r['floor_ms']:.4f} ms plain {r['plain_ms']:.3f} ms "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
         rows.setdefault("wave0", []).append(r)
+    # the long lane's batch, the rescue widths, bands of up to W-1 and
+    # past W diagonals (one to nine strides), the exact-repeat and
+    # sequence-end batches; dead rows (valid = 0) on every third tube of a
+    # plain batch and of two wide ones, where tubes 3, 9, 15, ... have the
+    # wide bands
+    for n, W, kind, widen, dead in (
+            (64, 256, "long", 0, 0), (32, 512, "plain", 0, 0),
+            (32, 2048, "plain", 0, 0), (512, 256, "wide", 0, 0),
+            (64, 256, "wide", 40, 0), (32, 256, "exact", 0, 0),
+            (32, 256, "ends", 0, 0), (512, 256, "plain", 0, 3),
+            (512, 256, "wide", 0, 3), (64, 256, "wide", 40, 3)):
+        for d in (+1, -1):
+            r = check_wave0(n, W, 102, d, kind, widen, dead)
+            log(f"wave0 dir={d:+d} n={n} W={W} {kind}"
+                f"{f' widened by {widen}' if widen else ''}"
+                f"{f' dead every {dead}' if dead else ''}: "
+                f"max_abs_err={r['err']}")
+            rows["wave0"].append(r)
     r = check_walk(*random_logs(1536, 512, 256, 303))
     log(_walk_line(r, "G=1536 n=512 W=256 random log"))
     rows["backtrack_walk"] = [r]
@@ -507,18 +551,44 @@ def phase_kernels(spec):
     return out
 
 
+CHAIN_M2 = 50_331_648    # repeat-rich's chain sweep rows (2 x CHAIN_DEV_CAP)
+
+
+def seeded_scan_inputs(M, seed):
+    """The chain sweep's two scan inputs at M rows, made on the card from
+    a seed: 13 int32 channels and a break flag (1%) for the per-chain
+    aggregates, and chain-shaped coverage rows (novel bases 0-255, a break
+    at row 0) whose sums pass 2^31."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    vals = tuple(torch.randint(-2 ** 20, 2 ** 20, (M,), generator=g,
+                               device="cuda", dtype=torch.int32)
+                 for _ in range(13))
+    brk = torch.rand(M, generator=g, device="cuda") < 0.01
+    brk[0] = True
+    novel = torch.randint(0, 256, (M,), generator=g, device="cuda",
+                          dtype=torch.int32)
+    cbrk = torch.rand(M, generator=g, device="cuda") < 1e-7
+    cbrk[0] = True
+    return vals, brk.to(torch.int32), novel, cbrk
+
+
 def time_wave(tree):
-    """The wave kernels of the fastga_tpu_torch under ``tree`` (this
-    checkout, or an unpacked earlier commit) timed at the main shapes
-    (n=512/W=256, G=384 and 1,536) and the long lane's (n=64, G=6,144), in
-    both directions, wave_chunk and backtrack_walk on the log it wrote,
-    and backtrack_walk on a random log; prints one JSON line with a digest
-    of each output (canon_state of wave_chunk, d0 and D of the walk)."""
+    """The kernels of the fastga_tpu_torch under ``tree`` (this checkout,
+    or an unpacked earlier commit) timed on seeded inputs: wave_chunk at
+    the main shapes (n=512/W=256, G=384 and 1,536) and the long lane's
+    (n=64, G=6,144), in both directions, backtrack_walk on the log it
+    wrote and on a random log; wave0 at n=512/W=256, the long lane's n=64
+    and the rescue lane's n=32/W=512; fused_scan at the chain aggregates'
+    spec (13 max channels, 1 flag, M = 50,331,648) and the chain sweep's
+    int64 coverage route (device_pipeline._seg_cumsum) at the same M.
+    Prints one JSON line with a digest of each output."""
     import hashlib
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
-    from fastga_tpu_torch.ops import cuda_build, wave_kernels as wk
+    from fastga_tpu_torch.ops import (cuda_build, device_pipeline as dp,
+                                      scan_kernels as sk, wave_kernels as wk)
     from fastga_tpu_torch.ops.wave_ref import AlignSpec
     cuda_build.build_kernels()
     spec = AlignSpec(0.7, 100, False, (0.25, 0.25, 0.25, 0.25))
@@ -526,9 +596,37 @@ def time_wave(tree):
     def digest(arrs):
         h = hashlib.sha1()
         for a in arrs:
+            if isinstance(a, torch.Tensor):
+                a = a.cpu().numpy()
             h.update(np.ascontiguousarray(a).tobytes())
         return h.hexdigest()[:16]
     out = {"tree": os.path.abspath(tree), "card": smi_line()}
+    for n, W, kind in ((512, 256, "plain"), (64, 256, "long"),
+                       (32, 512, "plain")):
+        args = seeded_batch(n, W, 202, kind)
+        for d in (+1, -1):
+            pool, targs, cols = args
+            st0 = wk.wave0(pool, targs, *cols, W, d)
+            out[f"wave0 n={n} W={W} dir={d:+d}"] = dict(
+                wave0_ms=cuda_ms(lambda: wk.wave0(pool, targs, *cols, W, d),
+                                 50, windows=5),
+                wave0_digest=digest(st0))
+    vals, brk, novel, cbrk = seeded_scan_inputs(CHAIN_M2, 404)
+    chain13 = (("max", 0),) * 13
+    outs = sk.fused_scan(vals, chain13, (brk,))
+    out[f"fused_scan M={CHAIN_M2} 13xmax/f0"] = dict(
+        scan_ms=cuda_ms(lambda: sk.fused_scan(vals, chain13, (brk,)), 10,
+                        windows=5),
+        scan_digest=digest(outs),
+        bound_ms=bound(4 * CHAIN_M2 * (1 + 2 * 13), 0)[0])
+    del outs
+    cov = dp._seg_cumsum(novel, cbrk)
+    out[f"coverage route M={CHAIN_M2} (_seg_cumsum)"] = dict(
+        cov_ms=cuda_ms(lambda: dp._seg_cumsum(novel, cbrk), 5, windows=5),
+        cov_digest=digest((cov,)), cov_max=int(cov.max()),
+        # int32 rows and a bool flag in, int64 sums out
+        bound_ms=bound(CHAIN_M2 * (4 + 1 + 8), 0)[0])
+    del cov, vals, brk, novel, cbrk
     for n, k, kind in ((512, 4, "plain"), (512, 16, "plain"),
                        (64, 64, "long")):
         G = 96 * k
@@ -581,13 +679,15 @@ def compare_trees(parent):
     for key in runs[0]:
         if key in ("tree", "card"):
             continue
-        for what in ("chunk", "walk"):
+        for what in ("chunk", "walk", "wave0", "scan", "cov"):
             if what + "_ms" not in runs[0][key]:
                 continue
             ms = [r[key][what + "_ms"] for r in runs]
             dg = {r[key][what + "_digest"] for r in runs}
             same = same and len(dg) == 1
             extra = ""
+            if "bound_ms" in runs[1][key]:
+                extra = f" bound {runs[1][key]['bound_ms']:.5f} ms"
             if what == "chunk":
                 wm = runs[1][key]["waves_max"]
                 extra = (f" waves max {wm} mean "
@@ -613,6 +713,7 @@ class SeedCapture:
     def __init__(self):
         self.merge = {}
         self.scan = {}
+        self.scan_calls = {}
         self.tubes = None
         self.tubes_args = None
 
@@ -631,6 +732,7 @@ class SeedCapture:
 
         def scan_w(values, spec, flags=(), reverse=False):
             key = (tuple(spec), len(flags), bool(reverse))
+            self.scan_calls[key] = self.scan_calls.get(key, 0) + 1
             old = self.scan.get(key)
             if old is None or values[0].shape[0] > old[0][0].shape[0]:
                 self.scan[key] = (tuple(values), tuple(flags))
@@ -730,6 +832,13 @@ def profile_kernels(name, g1, g2):
         log(f"profile[{name}]: device time not measured (the profiler "
             "recorded none)")
         return
+    # torch.cummax / cummin run as this scan kernel: none on the main path
+    cum = [e.key for e in ka if "scan_innermost_dim_with_indices" in e.key
+           or "cummax" in e.key or "cummin" in e.key]
+    if cum:
+        raise SystemExit(f"profile[{name}]: cummax/cummin kernels on the "
+                         f"main path: {cum}")
+    log(f"profile[{name}]: no cummax/cummin kernel")
     log(f"profile[{name}]: device busy {busy:.4f} s of {wall:.3f} s wall "
         f"under the profiler (idle share {1 - busy / wall:.4f})")
     ours = ("wave_chunk_kernel", "wave0_kernel", "backtrack_walk_kernel",
@@ -799,32 +908,37 @@ def check_merge(opsA, opsB, reps=10):
                 shape=(opsA[0].shape[0], opsB[0].shape[0], len(opsA)))
 
 
-def check_scan(values, spec, flags, reverse, reps=10):
-    """fused_scan against its plain version on every row, kernel and plain
-    ms, the byte bound (4 bytes per row for each flag, 8 for each channel:
-    read once, written once) and the yardstick: torch.cumsum of the stacked
-    channels (it computes less)."""
+def check_scan(values, spec, flags, reverse, reps=10, timed=True):
+    """fused_scan against its plain version on every row; ``timed``: kernel
+    and plain ms, the byte bound (4 bytes per row for each flag, twice the
+    value's bytes for each channel: read once, written once) and the
+    yardstick: torch.cumsum of the stacked channels (it computes less)."""
     import torch
 
     from fastga_tpu_torch.ops import scan_kernels as sk
+    dt = torch.int64 if spec[0][0] == "sum64" else torch.int32
     got = sk.fused_scan(values, spec, flags, reverse)
-    want = sk.fused_scan_plain(values, spec, flags, reverse)
+    want = sk.fused_scan_plain([v.to(dt) for v in values], spec,
+                               [f.to(torch.int32) for f in flags], reverse)
     torch.cuda.synchronize()
     err = 0
     for a, b in zip(got, want):
-        if not torch.equal(a, b):
-            err = max(err, int((a.long() - b.long()).abs().max()))
+        if a.dtype != dt or not torch.equal(a, b):
+            err = max(err, int((a.long() - b.long()).abs().max()), 1)
     M = values[0].shape[0]
+    shape = (M, len(values), len(flags), bool(reverse))
+    if not timed:
+        return dict(err=err, shape=shape)
     ms = cuda_ms(lambda: sk.fused_scan(values, spec, flags, reverse), reps,
                  windows=5)
     plain_ms = cuda_ms(lambda: sk.fused_scan_plain(values, spec, flags,
                                                    reverse), 1, warm=1)
-    stack = torch.stack([v.to(torch.int32) for v in values])
-    yard_ms = cuda_ms(lambda: torch.cumsum(stack, 1, dtype=torch.int32), 2)
-    bms, by = bound(4 * M * (len(flags) + 2 * len(values)), 0)
+    stack = torch.stack([v.to(dt) for v in values])
+    yard_ms = cuda_ms(lambda: torch.cumsum(stack, 1, dtype=dt), 2)
+    esize = 8 if dt == torch.int64 else 4
+    bms, by = bound(M * (4 * len(flags) + 2 * esize * len(values)), 0)
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, yard_ms=yard_ms,
-                shape=(M, len(values), len(flags), bool(reverse)))
+                bound_by=by, yard_ms=yard_ms, shape=shape)
 
 
 def _spec_str(spec):
@@ -855,7 +969,8 @@ def phase_seed_kernels(cap_uniform, cap_rr):
             f"{r['yard_ms']:.3f} ms")
         rows["merge_path"].append(r)
     # every spec either run called, at the larger of its two main-path
-    # sizes (the uniform run's coverage sum is a scan, repeat-rich's not)
+    # sizes (the coverage sum: uniform's int32 "sum", repeat-rich's
+    # int64 "sum64")
     scan = dict(cap_uniform.scan)
     for key, vf in cap_rr.scan.items():
         if key not in scan or vf[0][0].shape[0] > scan[key][0][0].shape[0]:
@@ -872,19 +987,43 @@ def phase_seed_kernels(cap_uniform, cap_rr):
                 f"{r['plain_ms']:.3f} ms bound {r['bound_ms']:.5f} ms "
                 f"({r['bound_by']}) yardstick cumsum {r['yard_ms']:.3f} ms")
             rows["fused_scan"].append(r)
-    rng = np.random.default_rng(403)
+    # odd sizes, the tile's edges +-1 (fused_scan.cu cuts 4,096-row tiles
+    # for up to 6 int32 channels and the int64 one, 2,048 for more), more
+    # than 10,000 tiles (the look-back runs past its
+    # 32-tile windows), a misaligned view (4-byte copies and stores), the
+    # int64 channel past 2^31 of either sign: every row against the plain
+    # version
+    g = torch.Generator(device="cuda").manual_seed(403)
     spec6 = (("sum", None), ("max", 0), ("min", 1), ("last", 1),
              ("sum", 0), ("max", None))
-    for M in (1, 4096 * 3 + 37):
-        vals = [torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, M)
-                                .astype(np.int32), device="cuda")
-                for _ in spec6]
-        fl = [torch.as_tensor((rng.random(M) < p).astype(np.int32),
-                              device="cuda") for p in (0.02, 0.3)]
+    spec13 = tuple((("max", "last", "min", "sum")[i % 4], i % 2)
+                   for i in range(13))
+    spec16 = spec6 + spec6 + spec6[:4]
+    sum64 = (("sum64", 0),)
+    cases = [(M, spec6, False) for M in (1, 3, 1023, 1024, 1025, 2047, 2048,
+                                         2049, 4095, 4096, 4097, 12325)]
+    cases += [(12325, spec6, True)]
+    cases += [(M, spec13, False) for M in (2047, 2048, 2049,
+                                           10_000 * 2048 + 517)]
+    cases += [(M, spec16, False) for M in (2047, 2048, 2049)]
+    cases += [(M, sum64, False) for M in (4097, 3 * 2 ** 20 + 5)]
+    for M, spec, shifted in cases:
+        lo, hi = ((-2 ** 31, 2 ** 31) if spec is not sum64
+                  else (0, 2 ** 20) if M > 2 ** 20 else (-2 ** 40, 2 ** 40))
+        dt = torch.int64 if spec is sum64 else torch.int32
+        vals = [torch.randint(lo, hi, (M + shifted,), generator=g,
+                              device="cuda", dtype=dt)[shifted:]
+                for _ in spec]
+        fl = [(torch.rand(M + shifted, generator=g, device="cuda") < p)
+              .to(torch.int32)[shifted:] for p in (1e-4, 0.3)[:len(spec)]]
         for rev in (False, True):
-            r = check_scan(vals, spec6, fl, rev)
-            log(f"fused_scan M={M} {_spec_str(spec6)} reverse={rev}: "
-                f"max_abs_err {r['err']} kernel {r['ms']:.4f} ms")
+            r = check_scan(vals, spec, fl, rev, timed=False)
+            past = ""
+            if spec is sum64:
+                past = f" (largest sum {int(torch.cumsum(vals[0], 0).max())})"
+            log(f"fused_scan M={M} {_spec_str(spec)} reverse={rev}"
+                f"{' misaligned' if shifted else ''}: max_abs_err "
+                f"{r['err']}{past}")
             rows["fused_scan"].append(r)
     out = {}
     for name, rs in rows.items():
@@ -1067,6 +1206,17 @@ def phase_repeatrich(mbp):
         _, stats, _ = run_main_path("repeatrich", g1, g2)
         launches = dict(cuda_build.LAUNCHES)
     log(f"  launches[repeatrich]: {json.dumps(launches)}")
+    # the int64 coverage sum (255 * M2 >= 2^31 here) is one fused_scan
+    # call of its own: one launch more than the int32 specs' count
+    calls = {_spec_str(k[0]) + ("" if not k[2] else " reverse"): c
+             for k, c in cap.scan_calls.items()}
+    wide = sum(c for k, c in cap.scan_calls.items() if k[0][0][0] == "sum64")
+    log(f"  fused_scan calls[repeatrich]: {json.dumps(calls)}; "
+        f"{launches['fused_scan']} launches = "
+        f"{launches['fused_scan'] - wide} int32 + {wide} int64 coverage sum")
+    if wide != 1 or sum(cap.scan_calls.values()) != launches["fused_scan"]:
+        raise SystemExit("repeatrich: the int64 coverage sum did not run "
+                         "once on fused_scan")
     if (stats["nlive"], stats["cov"]) != REPEAT_RICH_EXPECT:
         raise SystemExit(f"repeatrich: nlive {stats['nlive']} cov "
                          f"{stats['cov']}; expected {REPEAT_RICH_EXPECT}")

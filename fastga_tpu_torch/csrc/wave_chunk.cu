@@ -57,9 +57,6 @@
 
 using namespace wave;
 
-constexpr int WIN = 512;    // words per sequence window (8,192 bases)
-constexpr int SK = 8;       // words a snake step compares (128 bases)
-
 __device__ __forceinline__ void cp_async4(uint32_t* sdst,
                                           const uint32_t* gsrc) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(sdst);
@@ -77,83 +74,6 @@ __device__ __forceinline__ void fill_window(uint32_t* win,
     g = g < 0 ? 0 : (g > P - 1 ? P - 1 : g);
     cp_async4(win + i, pool + g);
   }
-}
-
-// SK funnel-shifted 16-base words from base `start` of the sequence at
-// word offset `woff` (fetch64 of wave_common.cuh, widened), through a
-// window holding pool words from absolute index `wlo`
-__device__ __forceinline__ void fetchw(const uint32_t* __restrict__ pool,
-                                       int P, const uint32_t* win, int wlo,
-                                       int woff, int start,
-                                       uint32_t out[SK]) {
-  const int sh = (start & 15) << 1;
-  const long long base = (long long)woff + (start >> 4);
-  const long long r = base - wlo;
-  uint32_t ws[SK + 1];
-  if (r >= 0 && r <= WIN - (SK + 1)) {
-#pragma unroll
-    for (int k = 0; k <= SK; ++k) ws[k] = win[r + k];
-  } else {
-#pragma unroll
-    for (int k = 0; k <= SK; ++k) {
-      long long i = base + k;
-      i = i < 0 ? 0 : (i > P - 1 ? P - 1 : i);
-      ws[k] = __ldg(pool + i);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < SK; ++k) out[k] = __funnelshift_r(ws[k], ws[k + 1], sh);
-}
-
-// length of the matching run (<= 16*SK) at (x, y) in direction FWD: the
-// run of SK/4 snake_run (wave_common.cuh) steps of 64 bases while each
-// matches all 64
-template <bool FWD>
-__device__ __forceinline__ int snake_step(const uint32_t* __restrict__ pool,
-                                          int P, const uint32_t* wa, int alo,
-                                          const uint32_t* wb, int blo, int x,
-                                          int y, int aw, int alen, int bw,
-                                          int blen) {
-  uint32_t wA[SK], wB[SK];
-  int rk[SK], va, vb;
-  // the run up to the first mismatch as the least of the per-word runs
-  // (a word without a mismatch gives 16*SK), a tree of mins
-  if (FWD) {
-    va = clampi(wsub(alen, x), 0, 16 * SK);
-    vb = clampi(wsub(blen, y), 0, 16 * SK);
-    fetchw(pool, P, wa, alo, aw, x, wA);
-    fetchw(pool, P, wb, blo, bw, y, wB);
-    // from the bottom: trailing zero bit pairs
-#pragma unroll
-    for (int k = 0; k < SK; ++k) {
-      const uint32_t d = wA[k] ^ wB[k];
-      rk[k] = d ? 16 * k + ((__ffs((int)d) - 1) >> 1) : 16 * SK;
-    }
-  } else {
-    va = clampi(x, 0, 16 * SK);
-    vb = clampi(y, 0, 16 * SK);
-    fetchw(pool, P, wa, alo, aw, wsub(x, 16 * SK), wA);
-    fetchw(pool, P, wb, blo, bw, wsub(y, 16 * SK), wB);
-    // from the top: leading zero bit pairs
-#pragma unroll
-    for (int k = 0; k < SK; ++k) {
-      const uint32_t d = wA[k] ^ wB[k];
-      rk[k] = d ? 16 * (SK - 1 - k) + (__clz((int)d) >> 1) : 16 * SK;
-    }
-  }
-#pragma unroll
-  for (int h = SK / 2; h > 0; h >>= 1)
-#pragma unroll
-    for (int k = 0; k < h; ++k) rk[k] = min(rk[k], rk[k + h]);
-  int run = rk[0];
-  run = run < va ? run : va;
-  return run < vb ? run : vb;
-}
-
-// warp all-reduce: max (MX) or min
-template <bool MX>
-__device__ __forceinline__ int wred(int v) {
-  return MX ? __reduce_max_sync(FULL, v) : __reduce_min_sync(FULL, v);
 }
 
 // the word of choice bytes at byte offset b: the bytes in [lo, hi] from
@@ -300,8 +220,9 @@ wave_chunk_kernel(const uint32_t* __restrict__ pool, int P,
         x = wadd(c_pre, k) >> 1;
         int R = 0;
         for (;;) {
-          const int run = snake_step<FWD>(pool, P, winA, alo, winB, blo, x,
-                                          wsub(x, k), aw, alen, bw, blen);
+          const int run = snake_step<FWD, true>(pool, P, winA, alo, winB, blo,
+                                                x, wsub(x, k), aw, alen, bw,
+                                                blen);
           R += run;
           x = FWD ? wadd(x, run) : wsub(x, run);
           if (run != 16 * SK) break;
@@ -392,29 +313,7 @@ wave_chunk_kernel(const uint32_t* __restrict__ pool, int P,
       const int s = slo + (it << 5) + lane;
       const bool inb = s <= shi;
       const int c = inb ? sV[s] : BAR;
-      int inc = c;
-      int ex;
-      if (FWD) {
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const int o = __shfl_down_sync(FULL, inc, d);
-          if (lane + d < 32) inc = op2<true>(inc, o);
-        }
-        ex = __shfl_down_sync(FULL, inc, 1);
-        if (lane == 31) ex = BAR;
-        ex = op2<true>(ex, carry);
-        carry = op2<true>(carry, __shfl_sync(FULL, inc, 0));
-      } else {
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const int o = __shfl_up_sync(FULL, inc, d);
-          if (lane >= d) inc = op2<false>(inc, o);
-        }
-        ex = __shfl_up_sync(FULL, inc, 1);
-        if (lane == 0) ex = BAR;
-        ex = op2<false>(ex, carry);
-        carry = op2<false>(carry, __shfl_sync(FULL, inc, 31));
-      }
+      const int ex = warp_scan_excl<FWD>(c, carry, BAR);
       if (!inb) continue;
       const bool improver = FWD ? c > op2<true>(besta, ex)
                                 : c < op2<false>(besta, ex);

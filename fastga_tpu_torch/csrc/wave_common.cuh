@@ -17,6 +17,8 @@ constexpr int NSC = 16;
 enum { SC_KBASE, SC_LOW, SC_HGH, SC_BESTA, SC_BESTX, SC_LASTA, SC_TRIMA,
        SC_TRIMX, SC_TRIMD, SC_TRIMW, SC_TRIMS, SC_ALIVE, SC_FALL, SC_DIF };
 constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int WIN = 512;    // words per sequence window (8,192 bases)
+constexpr int SK = 8;       // words a snake step compares (128 bases)
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
@@ -28,68 +30,77 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// number of leading matching bases of a 16-base XOR word (16 if equal)
-__device__ __forceinline__ int ctz2(uint32_t x) {
-  return x == 0 ? 16 : ((__ffs((int)x) - 1) >> 1);
-}
-
-// reverse the sixteen 2-bit groups of a word
-__device__ __forceinline__ uint32_t rev2(uint32_t v) {
-  uint32_t b = __brev(v);
-  return ((b >> 1) & 0x55555555u) | ((b & 0x55555555u) << 1);
-}
-
-// four funnel-shifted 16-base words starting at base `start` of the
-// sequence at word offset `woff`
-__device__ __forceinline__ void fetch64(const uint32_t* __restrict__ pool,
-                                        int P, int woff, int start,
-                                        uint32_t out[4]) {
-  const int w = start >> 4;
+// SK funnel-shifted 16-base words from base `start` of the sequence at
+// word offset `woff`.  WINDOWED: through a shared-memory window holding
+// pool words from absolute index `wlo` when the SK+1 words lie inside it,
+// else (and always without a window) from global memory; word indices
+// clamp to [0, P-1] on both paths, since a window holds pool[clamp(i)] at i.
+template <bool WINDOWED>
+__device__ __forceinline__ void fetchw(const uint32_t* __restrict__ pool,
+                                       int P, const uint32_t* win, int wlo,
+                                       int woff, int start,
+                                       uint32_t out[SK]) {
   const int sh = (start & 15) << 1;
-  const long long base = (long long)woff + w;
-  uint32_t ws[5];
+  const long long base = (long long)woff + (start >> 4);
+  const long long r = base - wlo;
+  uint32_t ws[SK + 1];
+  if (WINDOWED && r >= 0 && r <= WIN - (SK + 1)) {
 #pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    long long i = base + k;
-    i = i < 0 ? 0 : (i > P - 1 ? P - 1 : i);
-    ws[k] = __ldg(pool + i);
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) out[k] = __funnelshift_r(ws[k], ws[k + 1], sh);
-}
-
-// length of the matching run (<= 64) at (x, y) in direction FWD
-template <bool FWD>
-__device__ __forceinline__ int snake_run(const uint32_t* __restrict__ pool,
-                                         int P, int x, int y, int aw,
-                                         int alen, int bw, int blen) {
-  uint32_t wa[4], wb[4];
-  int va, vb;
-  if (FWD) {
-    va = clampi(wsub(alen, x), 0, 64);
-    vb = clampi(wsub(blen, y), 0, 64);
-    fetch64(pool, P, aw, x, wa);
-    fetch64(pool, P, bw, y, wb);
+    for (int k = 0; k <= SK; ++k) ws[k] = win[r + k];
   } else {
-    va = clampi(x, 0, 64);
-    vb = clampi(y, 0, 64);
-    uint32_t ta[4], tb[4];
-    fetch64(pool, P, aw, wsub(x, 64), ta);
-    fetch64(pool, P, bw, wsub(y, 64), tb);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      wa[k] = rev2(ta[3 - k]);
-      wb[k] = rev2(tb[3 - k]);
+    for (int k = 0; k <= SK; ++k) {
+      long long i = base + k;
+      i = i < 0 ? 0 : (i > P - 1 ? P - 1 : i);
+      ws[k] = __ldg(pool + i);
     }
   }
-  int run = ctz2(wa[0] ^ wb[0]);
-  bool full = run == 16;
 #pragma unroll
-  for (int k = 1; k < 4; ++k) {
-    const int mm = ctz2(wa[k] ^ wb[k]);
-    if (full) run = 16 * k + mm;
-    full = full && mm == 16;
+  for (int k = 0; k < SK; ++k) out[k] = __funnelshift_r(ws[k], ws[k + 1], sh);
+}
+
+// length of the matching run (<= 16*SK) at (x, y) in direction FWD: the
+// bases match up to the first mismatch of the two sequences' SK words, the
+// end of either sequence, or 16*SK.  A snake repeats the step while it
+// returns 16*SK.
+template <bool FWD, bool WINDOWED>
+__device__ __forceinline__ int snake_step(const uint32_t* __restrict__ pool,
+                                          int P, const uint32_t* wa, int alo,
+                                          const uint32_t* wb, int blo, int x,
+                                          int y, int aw, int alen, int bw,
+                                          int blen) {
+  uint32_t wA[SK], wB[SK];
+  int rk[SK], va, vb;
+  // the run up to the first mismatch as the least of the per-word runs
+  // (a word without a mismatch gives 16*SK), a tree of mins
+  if (FWD) {
+    va = clampi(wsub(alen, x), 0, 16 * SK);
+    vb = clampi(wsub(blen, y), 0, 16 * SK);
+    fetchw<WINDOWED>(pool, P, wa, alo, aw, x, wA);
+    fetchw<WINDOWED>(pool, P, wb, blo, bw, y, wB);
+    // from the bottom: trailing zero bit pairs
+#pragma unroll
+    for (int k = 0; k < SK; ++k) {
+      const uint32_t d = wA[k] ^ wB[k];
+      rk[k] = d ? 16 * k + ((__ffs((int)d) - 1) >> 1) : 16 * SK;
+    }
+  } else {
+    va = clampi(x, 0, 16 * SK);
+    vb = clampi(y, 0, 16 * SK);
+    fetchw<WINDOWED>(pool, P, wa, alo, aw, wsub(x, 16 * SK), wA);
+    fetchw<WINDOWED>(pool, P, wb, blo, bw, wsub(y, 16 * SK), wB);
+    // from the top: leading zero bit pairs
+#pragma unroll
+    for (int k = 0; k < SK; ++k) {
+      const uint32_t d = wA[k] ^ wB[k];
+      rk[k] = d ? 16 * (SK - 1 - k) + (__clz((int)d) >> 1) : 16 * SK;
+    }
   }
+#pragma unroll
+  for (int h = SK / 2; h > 0; h >>= 1)
+#pragma unroll
+    for (int k = 0; k < h; ++k) rk[k] = min(rk[k], rk[k + h]);
+  int run = rk[0];
   run = run < va ? run : va;
   return run < vb ? run : vb;
 }
@@ -116,95 +127,42 @@ __device__ __forceinline__ int op2(int a, int b) {
   return MX ? (a > b ? a : b) : (a < b ? a : b);
 }
 
-// All-reduce of K values over the block; MXMASK bit i selects max (1) or
-// min (0) for value i.  `sred` holds 32*K ints.  Two barriers.
-template <int K, unsigned MXMASK>
-__device__ __forceinline__ void block_reduce(int (&v)[K], int* sred) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      const int o = __shfl_xor_sync(FULL, v[i], d);
-      v[i] = ((MXMASK >> i) & 1) ? op2<true>(v[i], o) : op2<false>(v[i], o);
-    }
-    if (lane == 0) sred[i * 32 + warp] = v[i];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    int r = sred[i * 32];
-    for (int w = 1; w < nw; ++w)
-      r = ((MXMASK >> i) & 1) ? op2<true>(r, sred[i * 32 + w])
-                              : op2<false>(r, sred[i * 32 + w]);
-    v[i] = r;
-  }
-  __syncthreads();
+// warp all-reduce: max (MX) or min
+template <bool MX>
+__device__ __forceinline__ int wred(int v) {
+  return MX ? __reduce_max_sync(FULL, v) : __reduce_min_sync(FULL, v);
 }
 
-// Exclusive suffix max (FWD) / prefix min (reverse) scan over slots, each
-// thread owning SPT consecutive slots.  excl[j] is the max over slots
-// above slot j (FWD) or the min over slots below it; `total` is the
-// reduction over all slots.  Fill (identity) is BAR.  Two barriers.
-template <int SPT, bool FWD>
-__device__ __forceinline__ void block_scan_excl(const int (&v)[SPT],
-                                                int (&excl)[SPT], int& total,
-                                                int bar, int* sred) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  int loc[SPT];
-  int t;
-  if (FWD) {
-    t = bar;
-#pragma unroll
-    for (int j = SPT - 1; j >= 0; --j) { loc[j] = t; t = op2<true>(t, v[j]); }
-    // inclusive suffix over lanes
-    int inc = t;
+// One 32-slot stride of the improver scan: the running max over the lanes
+// above this one (MX; the running min over the lanes below it otherwise),
+// joined with `carry`, the running value of the strides scanned before.
+// `carry` moves on to include this stride.  Fill (identity) is `bar`.
+template <bool MX>
+__device__ __forceinline__ int warp_scan_excl(int v, int& carry, int bar) {
+  const int lane = threadIdx.x & 31;
+  int inc = v, ex;
+  if (MX) {
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const int o = __shfl_down_sync(FULL, inc, d);
       if (lane + d < 32) inc = op2<true>(inc, o);
     }
-    int ex = __shfl_down_sync(FULL, inc, 1);
+    ex = __shfl_down_sync(FULL, inc, 1);
     if (lane == 31) ex = bar;
-    if (lane == 0) sred[warp] = inc;
-    __syncthreads();
-    int carry = bar, tot = bar;
-    for (int w = 0; w < nw; ++w) {
-      tot = op2<true>(tot, sred[w]);
-      if (w > warp) carry = op2<true>(carry, sred[w]);
-    }
-    __syncthreads();
     ex = op2<true>(ex, carry);
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) excl[j] = op2<true>(loc[j], ex);
-    total = tot;
+    carry = op2<true>(carry, __shfl_sync(FULL, inc, 0));
   } else {
-    t = bar;
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) { loc[j] = t; t = op2<false>(t, v[j]); }
-    int inc = t;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const int o = __shfl_up_sync(FULL, inc, d);
       if (lane >= d) inc = op2<false>(inc, o);
     }
-    int ex = __shfl_up_sync(FULL, inc, 1);
+    ex = __shfl_up_sync(FULL, inc, 1);
     if (lane == 0) ex = bar;
-    if (lane == 31) sred[warp] = inc;
-    __syncthreads();
-    int carry = bar, tot = bar;
-    for (int w = 0; w < nw; ++w) {
-      tot = op2<false>(tot, sred[w]);
-      if (w < warp) carry = op2<false>(carry, sred[w]);
-    }
-    __syncthreads();
     ex = op2<false>(ex, carry);
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) excl[j] = op2<false>(loc[j], ex);
-    total = tot;
+    carry = op2<false>(carry, __shfl_sync(FULL, inc, 31));
   }
+  return ex;
 }
 
 // clipping of the band at sequence sentinels (align.c:757-782 / mirrored)

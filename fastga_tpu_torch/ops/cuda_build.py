@@ -30,16 +30,17 @@ KERNELS = {
     "wave_chunk": (("wave_common.cuh",),
                    [_vp, _ci, _vp] + [_vp] * 5 + [_vp] * 5 + [_vp, _vp]
                    + [_ci] * 7 + [_vp]),
+    # pool, P, eight tube columns, state, scalars, N, W, fwd, stream
     "wave0": (("wave_common.cuh",),
-              [_vp, _ci, _vp] + [_vp] * 5 + [_ci] * 3 + [_vp]),
+              [_vp, _ci] + [_vp] * 10 + [_ci] * 3 + [_vp]),
     "backtrack_walk": ((), [_vp] * 6 + [_ci] * 3 + [_vp]),
     # A columns, B columns, out columns (pointer arrays), ncols, E1, E2,
     # splits scratch and its length, stream
     "merge_path": ((), [_vp, _vp, _vp, _ci, _cll, _cll, _vp, _cll, _vp]),
     # value, out, flag pointer arrays, ops, flag ids, nch, nflags, M,
-    # reverse, three scratch buffers and their length, stream
-    "fused_scan": ((), [_vp, _vp, _vp, _vp, _vp, _ci, _ci, _cll, _ci,
-                        _vp, _vp, _vp, _cll, _vp]),
+    # reverse, wide (int64 values), look-back words and their tiles, stream
+    "fused_scan": ((), [_vp, _vp, _vp, _vp, _vp, _ci, _ci, _cll, _ci, _ci,
+                        _vp, _ci, _vp]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

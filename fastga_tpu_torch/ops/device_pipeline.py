@@ -270,14 +270,10 @@ def _u32_64(x):
 
 
 def _seg_cumsum(x, start):
-    """Segmented cumulative sum (difference-of-prefix-sums trick), int64.
-    Valid while the global prefix sum stays below 2^36."""
-    x = x.to(torch.int64)
-    c = torch.cumsum(x, 0)
-    base = c - x
-    gid = torch.cumsum(start.to(torch.int64), 0) << 36
-    run = torch.cummax(torch.where(start, gid + base, 0), 0).values
-    return c - (run - gid)
+    """Segmented cumulative sum in int64: fused_scan's sum64 channel,
+    restarting at every row where ``start`` is set.  Exact at any size (the
+    JAX package's difference-of-prefix-sums form holds below 2^36)."""
+    return fused_scan((x,), (("sum64", 0),), (start,))[0]
 
 
 # ---------------------------------------------------------------------------

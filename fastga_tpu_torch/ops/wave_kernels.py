@@ -600,18 +600,19 @@ def wave0(pool, targs, dgmin, dgmax, anti, valid, W, direction):
     if W > 2048 or W % 32:
         raise ValueError(f"wave0: W={W} must be a multiple of 32 and at "
                          f"most 2048")
+    # aw, alen, bw, blen, dgmin, dgmax, anti, valid (minp/maxp: not read)
+    cols = [t.to(torch.int32) for t in
+            list(targs[:4]) + [dgmin, dgmax, anti, valid]]
+    for t, nm in zip(cols, ("aw", "alen", "bw", "blen", "dgmin", "dgmax",
+                            "anti", "valid")):
+        _check(t, torch.int32, (N,), nm)
     _check(pool, torch.int32, (pool.numel(),), "pool")
-    cols = torch.stack([t.to(torch.int32) for t in
-                        list(targs) + [dgmin, dgmax, anti, valid]])
-    cols = cols.contiguous()
-    dev = pool.device
-    out = [torch.empty((N, W), dtype=torch.int32, device=dev)
-           for _ in range(4)]
-    sco = torch.empty((N, NSC), dtype=torch.int32, device=dev)
+    out = torch.empty((4, N, W), dtype=torch.int32, device=pool.device)
+    sco = torch.empty((N, NSC), dtype=torch.int32, device=pool.device)
     lib = build_kernels()["wave0"]
-    rc = lib.wave0_launch(_ptr(pool), pool.numel(), _ptr(cols),
-                          *[_ptr(t) for t in out], _ptr(sco), N, W,
-                          int(direction > 0), _stream())
+    rc = lib.wave0_launch(_ptr(pool), pool.numel(), *[_ptr(t) for t in cols],
+                          _ptr(out), _ptr(sco), N, W, int(direction > 0),
+                          _stream())
     _raise_on(rc, "wave0")
     LAUNCHES["wave0"] += 1
     return tuple(out) + unpack_scalars(sco)

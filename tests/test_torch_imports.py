@@ -57,3 +57,19 @@ def test_kernel_wrappers_refuse_cpu_mix():
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         wk._check(torch.zeros(4, dtype=torch.int32), torch.int32, (4,),
                   "pool")
+
+
+@pytest.mark.parametrize("W, match", [(100, "multiple of 32"),
+                                      (4096, "at most 2048"),
+                                      (256, "aw: expected a CUDA tensor")])
+def test_wave0_wrapper_refuses_cpu_mix_and_bad_w(W, match):
+    """wave0 hands its tube columns to the kernel as they are (no stack):
+    with a pool off the CPU (a meta tensor stands in for the card's), CPU
+    columns are refused, and so is a W the kernel does not take."""
+    import torch
+
+    from fastga_tpu_torch.ops import wave_kernels as wk
+    pool = torch.zeros(64, dtype=torch.int32, device="meta")
+    col = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        wk.wave0(pool, (col,) * 6, col, col, col, col, W, 1)

@@ -79,7 +79,19 @@ SPECS = {
             ("max", None)),
     # the chain sweep's per-chain aggregates (device_pipeline.py:1229-1231)
     "chain13": (("max", 0),) * 13,
+    # the chain sweep's int64 coverage sum (the port's fused_scan channel)
+    "cov64": (("sum64", 0),),
 }
+
+
+def _sum64_oracle(x, flag, reverse):
+    """The segmented int64 sum, one row at a time."""
+    out = np.zeros(len(x), np.int64)
+    run = 0
+    for i in (range(len(x) - 1, -1, -1) if reverse else range(len(x))):
+        run = int(x[i]) if flag[i] else run + int(x[i])
+        out[i] = run
+    return out
 
 
 @pytest.mark.parametrize("spec_name", sorted(SPECS))
@@ -92,18 +104,22 @@ def test_fused_scan_plain_matches_oracle(spec_name, M, reverse):
     flags[0][0] = flags[0][-1] = 1
     vals = []
     for c, (op, _) in enumerate(spec):
-        if op == "sum":     # full-range values: the sums overflow int32
+        if op == "sum64":   # sums far past int32, of either sign
+            v = rng.integers(-2 ** 40, 2 ** 40, M)
+        elif op == "sum":   # full-range values: the sums overflow int32
             v = rng.integers(I32MIN, I32MAX, M, endpoint=True)
         else:
             v = rng.integers(-1000, 1000, M)
             v[rng.random(M) < 0.01] = I32MIN if c % 2 else I32MAX
-        vals.append(v.astype(np.int32))
-    want = fused_scan_ref(vals, spec, flags, reverse=reverse)
+        vals.append(v.astype(np.int64 if op == "sum64" else np.int32))
+    wide = spec_name == "cov64"
+    want = ([_sum64_oracle(vals[0], flags[0], reverse)] if wide
+            else fused_scan_ref(vals, spec, flags, reverse=reverse))
     got = fused_scan([torch.as_tensor(v) for v in vals], spec,
                      [torch.as_tensor(f) for f in flags], reverse=reverse)
     assert LAUNCHES["fused_scan"] == 0
     for c in range(len(spec)):
-        assert got[c].dtype == torch.int32
+        assert got[c].dtype == (torch.int64 if wide else torch.int32)
         np.testing.assert_array_equal(got[c].numpy(), want[c],
                                       err_msg=f"channel {c} {spec[c]}")
 
@@ -142,6 +158,49 @@ def test_merge_plain_matches_lax_sort(geom):
         np.testing.assert_array_equal(got[i].numpy()[:nval],
                                       np.asarray(bit[i])[:nval])
         assert got[i].shape == (E1 + E2,)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.0003])
+def test_sum64_matches_jax_seg_cumsum(p):
+    """The int64 channel against the JAX package's coverage route
+    (device_pipeline._seg_cumsum, exact below 2^36) on sums past 2^31."""
+    rng = np.random.default_rng(int(p * 1e4) + 17)
+    M = 20_000
+    x = rng.integers(0, 2 ** 20, M, endpoint=True).astype(np.int32)
+    start = rng.random(M) < p
+    got = fused_scan((torch.as_tensor(x),), (("sum64", 0),),
+                     (torch.as_tensor(start),))[0]
+    with jax.enable_x64():
+        want = np.asarray(dp._seg_cumsum(jax, jnp, jnp.asarray(x),
+                                         jnp.asarray(start)))
+    assert got.dtype == torch.int64 and want.max() > 2 ** 31
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_chain_coverage_int64_route_matches_jax():
+    """The chain sweep's int64 coverage route (the port's _seg_cumsum, on
+    fused_scan's sum64 channel) on chain-shaped rows (novel bases <= 255, a
+    break at row 0) equals the JAX package's route and the int32 route."""
+    rng = np.random.default_rng(0xC0F)
+    M = 30_000
+    novel = rng.integers(0, 256, M).astype(np.int32)
+    novel[rng.random(M) < 0.1] = 0
+    brk = rng.random(M) < 0.01
+    brk[0] = True
+    got = tp._seg_cumsum(torch.as_tensor(novel), torch.as_tensor(brk))
+    with jax.enable_x64():
+        want = np.asarray(dp._seg_cumsum(jax, jnp, jnp.asarray(novel),
+                                         jnp.asarray(brk)))
+    cov32 = fused_scan((torch.as_tensor(novel),), (("sum", 0),),
+                       (torch.as_tensor(brk.astype(np.int32)),))[0]
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), cov32.numpy())
+
+
+def test_fused_scan_refuses_mixed_widths():
+    v = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="goes alone"):
+        fused_scan((v, v), (("sum64", 0), ("max", 0)), (v,))
 
 
 def test_kernel_wrappers_check_their_arguments():

@@ -50,14 +50,32 @@ Phases (every one runs; any failure exits non-zero before the summary):
 7. exactness: a small mutated pair with an inversion through the card path
    and the port's exact scalar engine (engine="ref") gives equal records;
 8. the device busy share of the uniform run under torch.profiler (its
-   Chrome trace goes to fastga_tpu_torch/_build/profile/).
+   Chrome trace goes to fastga_tpu_torch/_build/profile/);
+9. the command line (fastga_tpu_torch.cli), in process on the card, with
+   its files under fastga_tpu_torch/_build/cli/: `fastga -T1 S.fasta` and
+   `alntopaf` of its `-1:` file give tests/golden/ref_self.paf (the C
+   reference's PAF) byte for byte, and `fastga -1:` on the E/F pair the C
+   reference's three records; `fastga -v -1:X.1aln A B` and `fastga -v A B`
+   on the uniform and repeat-rich scenarios (written as FASTA) give the
+   records of phases 4-5 (read back from the .1aln) and as many PAF lines,
+   every kernel launched, and the wall time split into FASTA parse and GDB
+   build, alignment and writing (the CLI's -v phase lines); one `python
+   -m fastga_tpu_torch.cli.fastga` subprocess on a small mutated pair
+   prints the in-process PAF; `gixmake` (the device GIX build) on the
+   uniform FASTAs writes the host build's .gix files byte for byte, and
+   `fastga A.gix B.gix` gives the uniform records.
 
 The second-to-last line is the per-kernel JSON summary, the last line the
 device summary.
 """
 
+import contextlib
+import hashlib
+import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -84,6 +102,12 @@ UNIFORM_SEEDS = (3_799_831, 288)
 REPEAT_RICH_SEEDS = (22_902_602, 99_999)
 KERNELS = ("wave_chunk", "wave0", "backtrack_walk", "merge_path",
            "fused_scan")
+HERE = os.path.dirname(os.path.abspath(__file__))
+CLI_DIR = os.path.join(HERE, "fastga_tpu_torch", "_build", "cli")
+# the C reference's records of the E/F pair (tests/test_e2e.py)
+EF_RECORDS = [(0, 0, 10025, 0, 0, 10000, False, 504),
+              (0, 10025, 20008, 0, 9988, 19988, True, 488),
+              (0, 20008, 30000, 0, 20000, 29988, False, 491)]
 
 
 def log(msg):
@@ -1173,8 +1197,9 @@ def phase_uniform():
     g1, g2 = uniform_gdbs()
     with SeedCapture() as cap, WaveCapture() as wcap:
         cuda_build.reset_launches()
-        ovls, stats, _ = run_main_path("uniform", g1, g2)
+        ovls, stats, wall = run_main_path("uniform", g1, g2)
         launches = dict(cuda_build.LAUNCHES)
+    main_run = scenario_files("uniform", g1, g2, ovls, wall)
     log(f"  launches[uniform]: {json.dumps(launches)}")
     wcap.report("uniform")
     if (stats["nlive"], stats["cov"]) != UNIFORM_EXPECT:
@@ -1186,7 +1211,7 @@ def phase_uniform():
             raise SystemExit(f"uniform: kernel {name} was never launched")
     check_host_tubes(g1, g2, cap.tubes[0])
     check_paneled(cap)
-    return launches, cap
+    return launches, cap, main_run
 
 
 def phase_repeatrich(mbp):
@@ -1203,8 +1228,10 @@ def phase_repeatrich(mbp):
         f"(gen {time.perf_counter() - t0:.1f} s)")
     with SeedCapture() as cap:
         cuda_build.reset_launches()
-        _, stats, _ = run_main_path("repeatrich", g1, g2)
+        ovls, stats, wall = run_main_path("repeatrich", g1, g2)
         launches = dict(cuda_build.LAUNCHES)
+    main_run = scenario_files("repeatrich", g1, g2, ovls, wall)
+    del ovls
     log(f"  launches[repeatrich]: {json.dumps(launches)}")
     # the int64 coverage sum (255 * M2 >= 2^31 here) is one fused_scan
     # call of its own: one launch more than the int32 specs' count
@@ -1222,7 +1249,7 @@ def phase_repeatrich(mbp):
                          f"{stats['cov']}; expected {REPEAT_RICH_EXPECT}")
     check_seeds("repeatrich", stats, REPEAT_RICH_SEEDS)
     profile_kernels("repeatrich", g1, g2)
-    return launches, cap
+    return launches, cap, main_run
 
 
 def phase_rescue():
@@ -1329,6 +1356,302 @@ def phase_exact():
     log(f"exact: {len(got)} records equal to the exact engine's")
 
 
+# -- the command line ------------------------------------------------------
+
+
+def records_digest(ovls):
+    """sha256 over the records in order: coordinates, strand, diffs and
+    trace."""
+    h = hashlib.sha256()
+    for o in ovls:
+        h.update(repr((int(o.aread), int(o.abpos), int(o.aepos),
+                       int(o.bread), int(o.bbpos), int(o.bepos),
+                       bool(o.bcomp), int(o.diffs),
+                       [(int(d), int(b)) for d, b in o.trace])).encode())
+    return h.hexdigest()
+
+
+def write_fasta(path, names, seqs, width=80):
+    """Upper-case FASTA of base-code arrays, ``width`` bases a line."""
+    from fastga_tpu_torch.utils import dna
+    with open(path, "wb") as f:
+        for name, codes in zip(names, seqs):
+            body = np.frombuffer(dna.to_ascii(codes, True), np.uint8)
+            full = len(body) // width
+            f.write(b">%s\n" % name.encode())
+            f.write(np.concatenate(
+                [body[:full * width].reshape(full, width),
+                 np.full((full, 1), 10, np.uint8)], 1).tobytes())
+            if len(body) % width:
+                f.write(body[full * width:].tobytes() + b"\n")
+
+
+def scenario_files(name, g1, g2, ovls, wall):
+    """Write a main-path scenario's genomes as FASTA files (one scaffold a
+    contig, as synth.to_gdb builds them) for the command line phase, with
+    the main path's record digest, count, coverage and wall time."""
+    d = os.path.join(CLI_DIR, name)
+    os.makedirs(d, exist_ok=True)
+    paths = []
+    for tag, g in (("A", g1), ("B", g2)):
+        paths.append(os.path.join(d, tag + ".fa"))
+        write_fasta(paths[-1], [s.header for s in g.scaffolds],
+                    [g.get_contig(i) for i in range(g.ncontig)])
+    return dict(name=name, fasta=paths, digest=records_digest(ovls),
+                n=len(ovls), cov=sum(o.aepos - o.abpos for o in ovls),
+                wall=wall)
+
+
+def run_cli(tool, argv, out_path=None):
+    """``fastga_tpu_torch.cli.<tool>.main(argv)`` in this process on the
+    card; stdout to ``out_path`` (else returned), stderr captured.
+    Returns (stdout or None, stderr, wall s); a non-zero status fails."""
+    import importlib
+
+    import torch
+    main = importlib.import_module(f"fastga_tpu_torch.cli.{tool}").main
+    err = io.StringIO()
+    out = open(out_path, "w") if out_path else io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        text = None if out_path else out.getvalue()
+    finally:
+        out.close()
+    if rc != 0:
+        raise SystemExit(f"cli: {tool} {' '.join(argv)} exited {rc}: "
+                         f"{err.getvalue()[-2000:]}")
+    return text, err.getvalue(), wall
+
+
+def cli_split(err, wall):
+    """The -v phase lines of fastga: (parse + GDB build, alignment,
+    writing) seconds of a run that took ``wall``."""
+    w = dict(re.findall(r"Resources for (.+?):\s+\S+u\s+\S+s\s+(\S+)w",
+                        err))
+    parse = float(w["genome/index resolution"])
+    align = float(w["seed merge + alignment search"])
+    return parse, align, wall - parse - align
+
+
+def read_records(path):
+    from fastga_tpu_torch.io import alncode
+    return alncode.read_aln(path).overlaps
+
+
+def self_fasta(path):
+    """tests/test_self.py's S.fasta (seed 777): a 30 kb base with a
+    mutated copy and a mutated inverted copy of 5 kb of it."""
+    rng = np.random.default_rng(777)
+    base = rng.integers(0, 4, 30000)
+    seg = base[2000:7000]
+
+    def mut(x, r=.03):
+        x = x.copy()
+        m = rng.random(len(x)) < r
+        x[m] = (x[m] + rng.integers(1, 4, m.sum())) % 4
+        return x
+
+    g = np.concatenate([base, mut(seg), (3 - mut(seg))[::-1],
+                        rng.integers(0, 4, 3000)])
+    txt = "".join("acgt"[x] for x in g)
+    with open(path, "w") as f:
+        f.write(">s1\n" + "\n".join(txt[i:i + 70]
+                                    for i in range(0, len(txt), 70)) + "\n")
+
+
+def diverged_pair(seed=5150, n=30000):
+    """tests/test_wave_ref.py's E/F pair: 3% substitutions, 1% insertions,
+    1% deletions, the middle third of F inverted."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 4, n).astype(np.uint8)
+    out = []
+    i = 0
+    while i < n:
+        r = rng.random()
+        if r < 0.03:
+            out.append((a[i] + rng.integers(1, 4)) % 4)
+            i += 1
+        elif r < 0.04:
+            out.append(rng.integers(0, 4))
+        elif r < 0.05:
+            i += 1
+        else:
+            out.append(a[i])
+            i += 1
+    b = np.array(out, dtype=np.uint8)
+    b = np.concatenate([b[:10000], (3 - b[10000:20000])[::-1], b[20000:]])
+    return a, b
+
+
+def cli_goldens(d):
+    """The C goldens through the command line on the card."""
+    s_fa = os.path.join(d, "S.fasta")
+    self_fasta(s_fa)
+    gold = open(os.path.join(HERE, "tests", "golden", "ref_self.paf")).read()
+    paf, _, wall = run_cli("fastga", ["-T1", s_fa])
+    if paf != gold:
+        raise SystemExit("cli: fastga -T1 S.fasta differs from "
+                         "tests/golden/ref_self.paf")
+    aln = os.path.join(d, "self")
+    run_cli("fastga", ["-T1", f"-1:{aln}", s_fa])
+    paf2, _, _ = run_cli("alntopaf", [aln + ".1aln"])
+    if paf2 != gold:
+        raise SystemExit("cli: alntopaf of fastga -T1 -1: S.fasta differs "
+                         "from tests/golden/ref_self.paf")
+    log(f"cli goldens: fastga -T1 S.fasta and alntopaf of its .1aln equal "
+        f"ref_self.paf ({gold.count(chr(10))} lines; fastga {wall:.3f} s)")
+    a, b = diverged_pair()
+    e_fa, f_fa = os.path.join(d, "E.fasta"), os.path.join(d, "F.fasta")
+    write_fasta(e_fa, ["e1"], [a], width=60)
+    write_fasta(f_fa, ["f1"], [b], width=60)
+    run_cli("fastga", [f"-1:{d}/EvF", e_fa, f_fa])
+    ovls = read_records(os.path.join(d, "EvF.1aln"))
+    got = [(o.aread, o.abpos, o.aepos, o.bread, o.bbpos, o.bepos, o.bcomp,
+            o.diffs) for o in ovls]
+    sums = all(sum(b for _, b in o.trace) == o.bepos - o.bbpos
+               and sum(dd for dd, _ in o.trace) == o.diffs for o in ovls)
+    if got != EF_RECORDS or not sums:
+        raise SystemExit(f"cli: fastga -1: E F gives {got} (trace sums "
+                         f"{'equal' if sums else 'differ'}); expected the "
+                         f"C reference's {EF_RECORDS}")
+    log("cli goldens: fastga -1: E.fasta F.fasta gives the C reference's "
+        "three records, trace sums equal to the spans")
+
+
+def cli_scenario(run, d):
+    """fastga -v -1: and fastga -v (PAF) on a main-path scenario's FASTA
+    files: the main path's records and as many PAF lines, every kernel
+    launched, the wall time split."""
+    from fastga_tpu_torch.ops import cuda_build
+    name = run["name"]
+    A, B = run["fasta"]
+    aln = os.path.join(d, name)
+    cuda_build.reset_launches()
+    _, err, wall = run_cli("fastga", ["-v", f"-1:{aln}", A, B])
+    launches = dict(cuda_build.LAUNCHES)
+    split = cli_split(err, wall)
+    t0 = time.perf_counter()
+    ovls = read_records(aln + ".1aln")
+    t_read = time.perf_counter() - t0
+    got = (len(ovls), sum(o.aepos - o.abpos for o in ovls))
+    same = records_digest(ovls) == run["digest"]
+    if got != (run["n"], run["cov"]) or not same:
+        raise SystemExit(f"cli[{name}]: the .1aln holds {got}; the main "
+                         f"path's records are {(run['n'], run['cov'])}, "
+                         f"digest {'equal' if same else 'different'}")
+    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise SystemExit(f"cli[{name}]: kernels {missing} were never "
+                         f"launched by the CLI run")
+    paf = aln + ".paf"
+    cuda_build.reset_launches()
+    _, err2, wall2 = run_cli("fastga", ["-v", A, B], out_path=paf)
+    launches2 = dict(cuda_build.LAUNCHES)
+    with open(paf) as f:
+        nlines = sum(1 for _ in f)
+    if nlines != len(ovls) or any(launches2.get(k, 0) <= 0 for k in KERNELS):
+        raise SystemExit(f"cli[{name}]: PAF has {nlines} lines for "
+                         f"{len(ovls)} records, launches {launches2}")
+    split2 = cli_split(err2, wall2)
+    log(f"cli[{name}]: {got[0]:,} records, {got[1]:,} bp, equal to the main "
+        f"path's; PAF {nlines:,} lines; launches {json.dumps(launches)}")
+    for what, w, (p, a, wr) in (("-1:X.1aln", wall, split),
+                                ("(PAF)", wall2, split2)):
+        log(f"  wall[{name}] fastga {what}: {w:.3f} s = FASTA parse and GDB "
+            f"build {p:.3f} + alignment {a:.3f} + writing {wr:.3f}; "
+            f"align_genomes (main path) {run['wall']:.3f} s")
+    log(f"  read_aln[{name}]: {t_read:.3f} s")
+
+
+def cli_python_m(d):
+    """One `python -m fastga_tpu_torch.cli.fastga` subprocess on the card
+    on a small mutated pair: status 0 and the in-process PAF."""
+    from fastga_tpu_torch.utils import synth
+    rng = np.random.default_rng(0xC11)
+    a = rng.integers(0, 4, 20000).astype(np.uint8)
+    b = synth.mutate(rng, a, 0.03, indel_frac=0.2)
+    A, B = os.path.join(d, "mA.fa"), os.path.join(d, "mB.fa")
+    write_fasta(A, ["mA"], [a])
+    write_fasta(B, ["mB"], [b])
+    want, _, _ = run_cli("fastga", [A, B])
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "fastga_tpu_torch.cli.fastga",
+                        A, B], cwd=HERE, env=env, capture_output=True,
+                       text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if p.returncode != 0 or p.stdout != want or not want:
+        raise SystemExit(f"cli: python -m fastga_tpu_torch.cli.fastga "
+                         f"exited {p.returncode}, PAF "
+                         f"{'equal' if p.stdout == want else 'different'} "
+                         f"({len(want.splitlines())} lines in process): "
+                         f"{p.stderr[-2000:]}")
+    log(f"cli: python -m fastga_tpu_torch.cli.fastga: rc 0, "
+        f"{len(want.splitlines())} PAF lines equal to the in-process run's "
+        f"({wall:.1f} s with interpreter start)")
+
+
+def cli_gixmake(run, d):
+    """gixmake (the device GIX build) on the uniform FASTAs: the host
+    build's files byte for byte, and fastga A.gix B.gix gives the uniform
+    records."""
+    from fastga_tpu_torch.io import gdb as gdbm, gix as gixm
+    from fastga_tpu_torch.ops import cuda_build
+    g = os.path.join(d, "gix")
+    os.makedirs(os.path.join(g, "host"), exist_ok=True)
+    walls = []
+    for src, tag in zip(run["fasta"], "AB"):
+        shutil.copy(src, os.path.join(g, tag + ".fa"))
+        cuda_build.reset_launches()
+        walls.append(run_cli("gixmake", [os.path.join(g, tag + ".fa")])[2])
+        if cuda_build.LAUNCHES["fused_scan"] <= 0:
+            raise SystemExit("cli: gixmake did not build on the card")
+    t0 = time.perf_counter()
+    table = gixm.build_gix(gdbm.read_gdb(os.path.join(g, "A")))
+    t_host = time.perf_counter() - t0
+    gixm.write_gix(table, os.path.join(g, "host", "A"))
+
+    def files(root):
+        stub, parts = gixm.gix_paths(root)
+        return {p: open(os.path.join(os.path.dirname(stub), p), "rb").read()
+                for p in sorted(os.listdir(os.path.dirname(stub)))
+                if p == os.path.basename(stub)
+                or p.startswith(os.path.basename(parts))}
+    dev_files = files(os.path.join(g, "A"))
+    if len(dev_files) < 2 or dev_files != files(os.path.join(g, "host", "A")):
+        raise SystemExit("cli: gixmake's .gix files differ from the host "
+                         "build_gix + write_gix of the same GDB")
+    aln = os.path.join(g, "AvB")
+    run_cli("fastga", [f"-1:{aln}", os.path.join(g, "A.gix"),
+                       os.path.join(g, "B.gix")])
+    if records_digest(read_records(aln + ".1aln")) != run["digest"]:
+        raise SystemExit("cli: fastga A.gix B.gix differs from the uniform "
+                         "records")
+    log(f"cli: gixmake A and B on the card ({walls[0]:.3f} / {walls[1]:.3f} "
+        f"s; host build_gix of A {t_host:.3f} s): {len(dev_files)} files "
+        f"({table.n:,} entries) equal to the host build's; fastga A.gix "
+        f"B.gix gives the uniform records")
+
+
+def phase_cli(run_u, run_rr):
+    """The command line on the card (phase 9)."""
+    t0 = time.perf_counter()
+    d = os.path.join(CLI_DIR, "run")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    cli_goldens(d)
+    cli_scenario(run_u, d)
+    cli_scenario(run_rr, d)
+    cli_python_m(d)
+    cli_gixmake(run_u, d)
+    log(f"cli: phase {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -1363,12 +1686,13 @@ def main(argv):
     spec = AlignSpec(0.7, 100, False, (0.25, 0.25, 0.25, 0.25))
     kern = phase_kernels(spec)
     phase_rescue()
-    launches, cap_u = phase_uniform()
-    launches_rr, cap_rr = phase_repeatrich(REPEAT_RICH_MBP)
+    launches, cap_u, run_u = phase_uniform()
+    launches_rr, cap_rr, run_rr = phase_repeatrich(REPEAT_RICH_MBP)
     kern.update(phase_seed_kernels(cap_u, cap_rr))
     del cap_u, cap_rr
     phase_exact()
     phase_profile()
+    phase_cli(run_u, run_rr)
 
     summary = []
     for name, src, rep in (

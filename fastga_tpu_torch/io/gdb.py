@@ -105,6 +105,13 @@ class GDB:
         packed = self._packed()[c.boff : c.boff + nbytes]
         return dna.uncompress(packed, c.clen)
 
+    def get_contig_piece(self, i: int, beg: int, end: int) -> np.ndarray:
+        c = self.contigs[i]
+        b0 = c.boff + beg // 4
+        b1 = c.boff + (end + 3) // 4
+        packed = self._packed()[b0:b1]
+        return dna.uncompress(packed, end - beg, beg % 4)
+
     # -- path conventions ---------------------------------------------------
 
     @staticmethod
@@ -276,7 +283,7 @@ def write_gdb(gdb: GDB, target, provenance_cmd: str = "") -> Path:
     gdb._packed().tofile(bps)
     gdb.bps_path = bps
     w = onecode.OneWriter(skel, GDB_SCHEMA, "gdb")
-    w.add_provenance("fastga_tpu_torch", "0.1", provenance_cmd or "write_gdb")
+    w.add_provenance("fastga_tpu", "0.1", provenance_cmd or "write_gdb")
     w.add_reference(gdb.srcpath, 1)
     w.write("f", *[float(x) for x in gdb.freq])
     for s in gdb.scaffolds:
@@ -294,3 +301,40 @@ def write_gdb(gdb: GDB, target, provenance_cmd: str = "") -> Path:
     return skel
 
 
+def read_gdb(path) -> GDB:
+    """Read a `.1gdb` skeleton (+ locate `.bps`)."""
+    skel, bps = GDB.paths(path)
+    gdb = GDB()
+    gdb.bps_path = bps
+    from .onecode_binary import open_any
+    r = open_any(skel, GDB_SCHEMA)
+    if r.references:
+        gdb.srcpath = r.references[0].filename
+    boff = 0
+    spos = 0
+    cur_scaf = -1
+    for line in r:
+        if line.type == "f":
+            gdb.freq = np.array(line.fields, dtype=np.float64)
+        elif line.type == "S":
+            if cur_scaf >= 0:
+                gdb.scaffolds[cur_scaf].slen = spos
+                gdb.scaffolds[cur_scaf].ectg = gdb.ncontig
+            gdb.scaffolds.append(Scaffold(0, gdb.ncontig, gdb.ncontig,
+                                          line.fields[0]))
+            cur_scaf += 1
+            spos = 0
+        elif line.type == "G":
+            spos += line.fields[0]
+        elif line.type == "C":
+            clen = line.fields[0]
+            gdb.contigs.append(Contig(clen, spos, boff, cur_scaf))
+            boff += (clen + 3) // 4
+            spos += clen
+            gdb.maxctg = max(gdb.maxctg, clen)
+            gdb.seqtot += clen
+    if cur_scaf >= 0:
+        gdb.scaffolds[cur_scaf].slen = spos
+        gdb.scaffolds[cur_scaf].ectg = gdb.ncontig
+    r.close()
+    return gdb

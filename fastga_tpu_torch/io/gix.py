@@ -35,7 +35,9 @@ index semantics.
 
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass
+from pathlib import Path
 from typing import List, Tuple
 
 import numpy as np
@@ -288,3 +290,161 @@ def _prefix_index(kbytes: np.ndarray) -> np.ndarray:
 # -- on-disk ------------------------------------------------------------------
 
 
+def gix_paths(path) -> Tuple[Path, Path]:
+    """(stub path, part-file prefix) for a GIX root or .gix path."""
+    p = Path(path)
+    name = p.name
+    if name.endswith(".gix"):
+        name = name[:-4]
+    return p.parent / (name + ".gix"), p.parent / ("." + name + ".ktab.")
+
+
+def write_gix(t: GixTable, path, nthreads: int = 8):
+    """Write `.gix` stub + `.ktab.<p>` parts (reference new-format layout)."""
+    stub, part_prefix = gix_paths(path)
+    ncontig = len(t.perm)
+    kb = t.kmer // 4
+
+    # NPARTS via the reference's 4GB-sort sizing (GIXmake.c:1907-1920)
+    nels = 0x100000000 // (t.cont_bytes + t.post_bytes + kb + 2)
+    tot = t.seqtot if t.seqtot else t.n
+    nbit = int((0.81 * (tot - (t.kmer - 1) * ncontig)) / nels) if nels else 0
+    nparts = ((max(nbit, 1) - 1) // nthreads + 1) * nthreads
+    nparts = min(max(nparts, 8), 64)
+
+    # split entries into nparts at 10-bit bucket boundaries, balanced
+    if t.n:
+        b10 = ((t.kbytes[:, 0].astype(np.int64) << 2)
+               | (t.kbytes[:, 1].astype(np.int64) >> 6))
+        bcounts = np.bincount(b10, minlength=1024)
+    else:
+        bcounts = np.zeros(1024, dtype=np.int64)
+    cum = np.concatenate([[0], np.cumsum(bcounts)])
+    targets = (np.arange(1, nparts) * t.n) // nparts
+    cuts = np.searchsorted(cum, targets, side="left")
+    bounds = np.concatenate([[0], cum[cuts], [t.n]]).astype(np.int64)
+
+    ebytes = _entry_bytes(t)
+    esz = ebytes.shape[1]
+    for p in range(nparts):
+        lo, hi = int(bounds[p]), int(bounds[p + 1])
+        with open(f"{part_prefix}{p+1}", "wb") as f:
+            f.write(struct.pack("<i", t.kmer))
+            f.write(struct.pack("<q", hi - lo))
+            ebytes[lo:hi].tofile(f)
+
+    counts = np.diff(t.prefix_index)
+    maxpre = int(counts.max()) if t.n else 0
+    with open(stub, "wb") as f:
+        f.write(struct.pack("<iiii", t.kmer, nparts, 1, 3))
+        np.cumsum(counts).astype("<i8").tofile(f)
+        f.write(struct.pack("<iii", t.post_bytes, t.cont_bytes, nparts))
+        f.write(struct.pack("<q", maxpre))
+        f.write(struct.pack("<ii", t.freq, ncontig))
+        t.perm.astype("<i4").tofile(f)
+        f.write(struct.pack("<q", -1))
+    return stub
+
+
+def _entry_bytes(t: GixTable) -> np.ndarray:
+    """Serialize entries: [suffix kb-3][mask][lcp][post le][cont le+flag]."""
+    kb = t.kmer // 4
+    n = t.n
+    esz = (kb - 3) + 2 + t.post_bytes + t.cont_bytes
+    out = np.zeros((n, esz), dtype=np.uint8)
+    out[:, : kb - 3] = t.kbytes[:, 3:kb]
+    out[:, kb - 3] = t.maskb
+    out[:, kb - 2] = t.lcp
+    o = kb - 1
+    pv = t.post.astype(np.uint64)
+    for i in range(t.post_bytes):
+        out[:, o + i] = (pv >> (8 * i)).astype(np.uint8)
+    o += t.post_bytes
+    cv = (t.cont.astype(np.uint64)
+          | (t.comp.astype(np.uint64) << (8 * t.cont_bytes - 1)))
+    for i in range(t.cont_bytes):
+        out[:, o + i] = (cv >> (8 * i)).astype(np.uint8)
+    return out
+
+
+def _read_stub(stub):
+    """Parse a .gix stub; returns a dict of header fields (layout
+    written by GIXmake.c:1542-1580, read by FastGA.c:273-344)."""
+    with open(stub, "rb") as f:
+        kmer, nparts, minval, ibyte = struct.unpack("<iiii", f.read(16))
+        assert ibyte == 3 and minval == 1, "unrecognized GIX stub"
+        cumpre = np.fromfile(f, dtype="<i8", count=NPREFIX)
+        post_bytes, cont_bytes, nparts2 = struct.unpack("<iii", f.read(12))
+        (maxpre,) = struct.unpack("<q", f.read(8))
+        freq, ncontig = struct.unpack("<ii", f.read(8))
+        perm = np.fromfile(f, dtype="<i4", count=ncontig)
+        (sentinel,) = struct.unpack("<q", f.read(8))
+    prefix_index = np.zeros(NPREFIX + 1, dtype=np.int64)
+    prefix_index[1:] = cumpre
+    return dict(kmer=kmer, nparts=nparts, cumpre=cumpre,
+                prefix_index=prefix_index, post_bytes=post_bytes,
+                cont_bytes=cont_bytes, freq=freq, ncontig=ncontig,
+                perm=perm, new_format=(sentinel == -1))
+
+
+def _decode_entry_rows(e, kb, post_bytes, cont_bytes):
+    """Decode raw ktab entry rows [suffix kb-3][mask][lcp][post le]
+    [cont le+flag] into column arrays (suffix, maskb, lcp, post, cont,
+    comp)."""
+    n = len(e)
+    maskb = e[:, kb - 3].copy()
+    lcp = e[:, kb - 2].copy()
+    o = kb - 1
+    post = np.zeros(n, dtype=np.int64)
+    for i in range(post_bytes):
+        post |= e[:, o + i].astype(np.int64) << (8 * i)
+    o += post_bytes
+    cv = np.zeros(n, dtype=np.int64)
+    for i in range(cont_bytes):
+        cv |= e[:, o + i].astype(np.int64) << (8 * i)
+    flag = 1 << (8 * cont_bytes - 1)
+    comp = (cv & flag) != 0
+    cont = (cv & (flag - 1)).astype(np.int32)
+    return e[:, : kb - 3], maskb, lcp, post, cont, comp
+
+
+def read_gix(path) -> GixTable:
+    stub, part_prefix = gix_paths(path)
+    h = _read_stub(stub)
+    kmer, nparts = h["kmer"], h["nparts"]
+    post_bytes, cont_bytes = h["post_bytes"], h["cont_bytes"]
+    if not h["new_format"]:
+        # the pre-v1.3 "old" GIX (posts in separate .post part files) is
+        # not read by this package
+        raise ValueError(f"{stub}: pre-v1.3 GIX format is not supported")
+
+    kb = kmer // 4
+    esz = (kb - 3) + 2 + post_bytes + cont_bytes
+    chunks = []
+    for p in range(nparts):
+        with open(f"{part_prefix}{p+1}", "rb") as f:
+            (k2,) = struct.unpack("<i", f.read(4))
+            (nents,) = struct.unpack("<q", f.read(8))
+            chunks.append(np.fromfile(f, dtype=np.uint8
+                                      ).reshape(nents, esz))
+    e = np.concatenate(chunks) if chunks else np.zeros((0, esz), np.uint8)
+    n = len(e)
+
+    prefix_index = h["prefix_index"]
+    # reconstruct full k-mer bytes: prefix from panel id + suffix from entry
+    kbytes = np.zeros((n, kb), dtype=np.uint8)
+    suf, maskb, lcp, post, cont, comp = _decode_entry_rows(
+        e, kb, post_bytes, cont_bytes)
+    if n:
+        p24 = np.repeat(np.arange(NPREFIX, dtype=np.int64),
+                        np.diff(prefix_index))
+        kbytes[:, 0] = (p24 >> 16).astype(np.uint8)
+        kbytes[:, 1] = (p24 >> 8).astype(np.uint8)
+        kbytes[:, 2] = p24.astype(np.uint8)
+        kbytes[:, 3:] = suf
+
+    return GixTable(kmer=kmer, kbytes=kbytes, post=post.astype(np.int32),
+                    cont=cont, comp=comp, lcp=lcp, maskb=maskb,
+                    prefix_index=prefix_index, perm=h["perm"],
+                    post_bytes=post_bytes, cont_bytes=cont_bytes,
+                    freq=h["freq"])

@@ -26,15 +26,16 @@ Field encodings on data lines: INT/REAL plain, CHAR plain, STRING/DNA as
 ``<len> <chars>``, INT_LIST/REAL_LIST as ``<len> <v>...``, STRING_LIST as
 ``<len> (<slen> <str>)...``.
 
-Only the writer is kept here (the GDB skeleton of create_gdb).
+Binary ONEcode (with trained codecs) is handled in onecode_binary.py.
 """
 
 from __future__ import annotations
 
+import io as _io
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 MAJOR, MINOR = 2, 1  # ONElib.c:55-56
 
@@ -139,6 +140,10 @@ class OneSchema:
                         if sub not in kids:
                             kids.add(sub)
                             changed = True
+
+    def has_list(self, c: str) -> bool:
+        spec = self.lines.get(c)
+        return bool(spec) and any(f in _LIST_TYPES for f in spec.fields)
 
     def spec_header_lines(self) -> List[str]:
         """Schema as '~' header lines (writeInfoSpec ONElib.c:455-472)."""
@@ -326,3 +331,199 @@ class OneWriter:
         self.close()
 
 
+@dataclass
+class OneLine:
+    type: str
+    fields: tuple
+
+    def __getitem__(self, i):
+        return self.fields[i]
+
+
+class _Tokens:
+    """Whitespace tokenizer that honors ONEcode length-prefixed strings."""
+
+    __slots__ = ("s", "i", "n")
+
+    def __init__(self, s: str):
+        self.s = s
+        self.i = 0
+        self.n = len(s)
+
+    def next_token(self) -> str:
+        s, i, n = self.s, self.i, self.n
+        while i < n and s[i] == " ":
+            i += 1
+        j = i
+        while j < n and s[j] != " ":
+            j += 1
+        self.i = j
+        return s[i:j]
+
+    def next_string(self, length: int) -> str:
+        # exactly one space then `length` raw chars (may contain spaces)
+        self.i += 1
+        out = self.s[self.i : self.i + length]
+        self.i += length
+        return out
+
+    def rest(self) -> str:
+        return self.s[self.i:]
+
+
+class OneReader:
+    """Read a ONEcode ASCII file.  Parses header (type, provenance,
+    references, embedded schema, counts) then yields data lines."""
+
+    def __init__(self, path, schema: Optional[OneSchema] = None):
+        self.path = Path(path)
+        self._f = open(self.path, "r")
+        self.filetype = None
+        self.subtype = None
+        self.provenance: List[Provenance] = []
+        self.references: List[Reference] = []
+        self.counts: dict = {}     # type -> {"count","max","total"}
+        self.group_stats: dict = {}
+        self._embedded_schema_text: List[str] = []
+        self.schema = schema
+        self._pending: Optional[str] = None
+        self._read_header()
+
+    def _read_header(self):
+        first = self._f.readline()
+        if not first:
+            raise ValueError(f"{self.path}: empty file")
+        if first[:1] == "1" and first[1:2] in (" ", "\n"):
+            toks = _Tokens(first.rstrip("\n"))
+            toks.next_token()
+            tl = int(toks.next_token())
+            self.filetype = toks.next_string(tl)
+            self.major = int(toks.next_token())
+            self.minor = int(toks.next_token())
+        else:
+            raise ValueError(f"{self.path}: not a ONEcode ASCII file "
+                             f"(binary ONEcode not handled by OneReader; "
+                             f"use onecode_binary)")
+        schema_lines = []
+        while True:
+            pos_line = self._f.readline()
+            if not pos_line:
+                self._pending = None
+                break
+            line = pos_line.rstrip("\n")
+            if not line:
+                continue
+            t = line[0]
+            toks = _Tokens(line)
+            toks.next_token()
+            if t == "2":
+                sl = int(toks.next_token())
+                self.subtype = toks.next_string(sl)
+            elif t == "!":
+                toks.next_token()  # list length 4
+                vals = []
+                for _ in range(4):
+                    ln = int(toks.next_token())
+                    vals.append(toks.next_string(ln))
+                self.provenance.append(Provenance(*vals))
+            elif t == "<":
+                ln = int(toks.next_token())
+                fn = toks.next_string(ln)
+                cnt = int(toks.next_token())
+                self.references.append(Reference(fn, cnt))
+            elif t == ">":
+                ln = int(toks.next_token())
+                toks.next_string(ln)
+            elif t == "~":
+                schema_lines.append(line[2:])
+            elif t == "#":
+                c = toks.next_token()
+                self.counts.setdefault(c, {})["count"] = int(toks.next_token())
+            elif t == "@":
+                c = toks.next_token()
+                self.counts.setdefault(c, {})["max"] = int(toks.next_token())
+            elif t == "+":
+                c = toks.next_token()
+                self.counts.setdefault(c, {})["total"] = int(toks.next_token())
+            elif t == "%":
+                oc = toks.next_token()
+                which = toks.next_token()
+                tc = toks.next_token()
+                v = int(toks.next_token())
+                self.group_stats.setdefault(oc, {}).setdefault(tc, {})[
+                    "max_count" if which == "#" else "max_total"] = v
+            elif t == ".":
+                continue
+            elif t == "$":
+                raise ValueError(f"{self.path}: binary ONEcode; "
+                                 f"use onecode_binary.BinaryReader")
+            else:
+                # first data line
+                self._pending = line
+                break
+        if self.schema is None and schema_lines:
+            text = (f"P {len(self.filetype)} {self.filetype}\n"
+                    + "\n".join(schema_lines))
+            self.schema = OneSchema.from_text(text)[self.filetype]
+
+    def _parse_line(self, line: str) -> OneLine:
+        t = line[0]
+        spec = self.schema.lines.get(t) if self.schema else None
+        toks = _Tokens(line)
+        toks.next_token()
+        if spec is None:
+            return OneLine(t, (toks.rest(),))
+        fields = []
+        for ftype in spec.fields:
+            if ftype == INT:
+                fields.append(int(toks.next_token()))
+            elif ftype == REAL:
+                fields.append(float(toks.next_token()))
+            elif ftype == CHAR:
+                fields.append(toks.next_token())
+            elif ftype in (STRING, DNA):
+                ln = int(toks.next_token())
+                fields.append(toks.next_string(ln))
+            elif ftype == INT_LIST:
+                ln = int(toks.next_token())
+                fields.append([int(toks.next_token()) for _ in range(ln)])
+            elif ftype == REAL_LIST:
+                ln = int(toks.next_token())
+                fields.append([float(toks.next_token()) for _ in range(ln)])
+            elif ftype == STRING_LIST:
+                ln = int(toks.next_token())
+                out = []
+                for _ in range(ln):
+                    sl = int(toks.next_token())
+                    out.append(toks.next_string(sl))
+                fields.append(out)
+        return OneLine(t, tuple(fields))
+
+    def __iter__(self) -> Iterator[OneLine]:
+        if self._pending is not None:
+            line = self._pending
+            self._pending = None
+            if line and line[0] != ".":
+                yield self._parse_line(line)
+        for raw in self._f:
+            line = raw.rstrip("\n")
+            if not line or line[0] in (".", "/"):
+                continue
+            yield self._parse_line(line)
+
+    def close(self):
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def read_all(path, schema: Optional[OneSchema] = None) -> Tuple[OneReader, List[OneLine]]:
+    """Convenience: open, read all data lines, close. Returns (reader, lines)."""
+    r = OneReader(path, schema)
+    lines = list(r)
+    r.close()
+    return r, lines

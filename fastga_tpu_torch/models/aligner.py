@@ -2,11 +2,12 @@
 
 Port of fastga_tpu/models/aligner.py.  A two-genome comparison takes its
 tubes from the device seed pipeline (ops/device_pipeline.py: GIX tables,
-adaptamer merge and chain sweep on the card); self comparison, soft masking
-and the exact engine build them on the host (io/gix, ops/merge,
-ops/chain).  The per-tube anti-diagonal tiling loop around
-Local_Alignment (FastGA.c:3227-3341) feeds batches of tubes to the wave
-kernels on the card; then the per-contig-pair redundancy elimination
+adaptamer merge and chain sweep on the card); self comparison, masks, the
+-S pass and the exact engine build them on the host (io/gix, ops/merge,
+ops/chain), from the caller's GIX tables where it passes them.  The
+per-tube anti-diagonal tiling loop around Local_Alignment
+(FastGA.c:3227-3341) feeds batches of tubes to the wave kernels on the
+card; then the per-contig-pair redundancy elimination
 (FastGA.c:3435-3694) and the deterministic (aread, abpos, bread, comp)
 output order.
 
@@ -24,7 +25,7 @@ import numpy as np
 
 from ..io.alncode import Overlap
 from ..io.gdb import GDB
-from ..io.gix import _length_perm, build_gix
+from ..io.gix import GixTable, _length_perm, build_gix
 from ..ops import chain as chainm
 from ..ops import device_pipeline as devp
 from ..ops import merge as mergem
@@ -66,29 +67,37 @@ def resolve_device(device):
 
 
 def align_genomes(gdb1: GDB, gdb2: GDB,
+                  t1: Optional[GixTable] = None,
+                  t2: Optional[GixTable] = None,
                   params: FastGAParams = FastGAParams(),
-                  engine: str = "torch", device=None,
-                  cfg=None) -> Tuple[List[Overlap], dict]:
+                  engine: str = "torch", device=None, cfg=None,
+                  verbose: bool = False,
+                  symmetric: bool = False) -> Tuple[List[Overlap], dict]:
     """Full FastGA comparison; returns (overlaps in output order, stats).
 
-    Pass the same gdb twice for self-comparison (seeds from within-table
-    adaptamer groups; same-contig forward tubes exclude the main
-    diagonal).  ``cfg`` is the main wave engine's WaveConfig (default
-    n=512, w=256, chunk=96, max_chunks=512, with an n=64 sibling for small
-    and long batches and the W=512/2048 rescue lanes).
+    Pass the same gdb (or table) twice for self-comparison (seeds from
+    within-table adaptamer groups; same-contig forward tubes exclude the
+    main diagonal).  ``t1``/``t2`` are the genomes' GIX tables when the
+    caller has them (a .gix input, masks, ``-T``): their contig order is
+    the run's, and host seeding uses them, masks included.  ``symmetric``
+    adds the -S second merge pass with genome 2 driving
+    (FastGA.c:2410-2470).  ``cfg`` is the main wave engine's WaveConfig
+    (default n=512, w=256, chunk=96, max_chunks=512, with an n=64 sibling
+    for small and long batches and the W=512/2048 rescue lanes).
 
-    A two-genome comparison takes its tubes from the device seed pipeline
-    (ops/device_pipeline.py) on ``device``; self comparison, soft masking
-    and ``engine="ref"`` seed on the host.  An input the device pipeline
-    declines before uploading anything (a cap of the JAX package, e.g.
-    ``freq`` above 10) is printed on stderr and seeded on the host; a cap
-    exceeded on the device raises.  ``stats["seed_pipeline"]`` says which
-    ran."""
+    A two-genome comparison with no masks and no ``symmetric`` takes its
+    tubes from the device seed pipeline (ops/device_pipeline.py) on
+    ``device``; self comparison, masks, ``symmetric`` and ``engine="ref"``
+    seed on the host.  An input the device pipeline declines before
+    uploading anything (a cap of the JAX package, e.g. ``freq`` above 10)
+    is printed on stderr and seeded on the host; a cap exceeded on the
+    device raises.  ``stats["seed_pipeline"]`` says which ran, and
+    ``verbose`` prints it on stderr."""
     if engine not in ("ref", "torch"):
         raise ValueError(f"unknown wave engine '{engine}' "
                          f"(expected 'ref' or 'torch')")
     dev = resolve_device(device) if engine == "torch" else None
-    selfcmp = gdb2 is gdb1
+    selfcmp = (t2 is t1 and t1 is not None) or gdb2 is gdb1
     stats = {}
     spec = wave_ref.AlignSpec(1.0 - params.align_rate, params.tspace,
                               False, tuple(gdb1.freq))
@@ -96,22 +105,30 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
     lens2 = gdb2.contig_lengths()
     amax = int(lens1.max()) if len(lens1) else 1
     bmax = int(lens2.max()) if len(lens2) else 1
+    kmer0 = t1.kmer if t1 is not None else KMER
 
-    def _perm_of(lens):
-        # the host tables' contig order: descending length, padded with
-        # fake KMER-length contigs to 8 (build_gix's short-GDB fix)
+    def _perm_of(t, lens):
+        # a table's contig order, else the host tables': descending
+        # length, padded with fake KMER-length contigs to 8 (build_gix's
+        # short-GDB fix)
+        if t is not None:
+            return np.asarray(t.perm)
         lens_eff = np.concatenate(
-            [lens, np.full(max(0, 8 - len(lens)), KMER, np.int64)])
+            [lens, np.full(max(0, 8 - len(lens)), kmer0, np.int64)])
         return np.asarray(_length_perm(lens_eff)[0])
 
-    perm1 = _perm_of(lens1)
-    perm2 = perm1 if selfcmp else _perm_of(lens2)
+    perm1 = _perm_of(t1, lens1)
+    perm2 = perm1 if selfcmp else _perm_of(t2, lens2)
     # rank -> length (fake short-fix ranks map to their KMER length)
     alens_by_rank = np.where(perm1 < len(lens1), lens1[np.minimum(
-        perm1, len(lens1) - 1)], KMER)
+        perm1, len(lens1) - 1)], kmer0)
+    has_masks = (params.soft_mask
+                 or (t1 is not None and t1.maskb.any())
+                 or (t2 is not None and not selfcmp and t2.maskb.any()))
 
     tubes = None
-    if engine == "torch" and not selfcmp and not params.soft_mask:
+    if engine == "torch" and not selfcmp and not has_masks \
+            and not symmetric:
         devp.DECLINE = None
         with prof.span("aligner.devpipe"):
             dres = devp.device_tubes(
@@ -132,8 +149,10 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
             stats["seed_decline"] = reason
     if tubes is None:
         with prof.span("aligner.gix"):
-            t1 = build_gix(gdb1)
-            t2 = t1 if selfcmp else build_gix(gdb2)
+            if t1 is None:
+                t1 = build_gix(gdb1)
+            if t2 is None:
+                t2 = t1 if selfcmp else build_gix(gdb2)
         with prof.span("aligner.merge"):
             if selfcmp:
                 seeds = mergem.self_adaptamer_seeds(
@@ -141,6 +160,15 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
             else:
                 seeds = mergem.adaptamer_seeds(
                     t1, t2, freq=params.freq, soft_mask=params.soft_mask)
+                if symmetric:
+                    extra = mergem.adaptamer_seeds_flip(
+                        t1, t2, freq=params.freq,
+                        soft_mask=params.soft_mask)
+                    seeds = mergem.SeedBatch(*[
+                        np.concatenate([getattr(seeds, f),
+                                        getattr(extra, f)])
+                        for f in ("plen", "acont", "apost", "bcont",
+                                  "bpost", "bcomp")])
         stats["nseeds"] = seeds.n
         stats["seed_len_avg"] = (float(seeds.plen.astype(np.float64).mean())
                                  if seeds.n else 0.0)
@@ -149,6 +177,8 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
             tubes = chainm.chain_tubes(seeds, amax, bmax, alens_by_rank,
                                        chain_break=params.chain_break,
                                        chain_min=params.chain_min)
+    if verbose:
+        sys.stderr.write(f"  Seed pipeline: {stats['seed_pipeline']}\n")
     stats["nhits"] = tubes.n
 
     seq_cache: Dict[Tuple[int, int], np.ndarray] = {}

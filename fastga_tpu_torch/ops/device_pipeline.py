@@ -22,13 +22,20 @@ chain past its panels) raises RuntimeError: the work never moves back to
 the host.  The XLA sorts of the JAX pipeline are ``torch.sort`` here.  Self
 comparison, masked tables, the -S flip pass and the kmer-panel streaming
 are not ported (the aligner keeps the host seed path for them).
+
+``build_gix_device`` is the index build of ``gixmake`` and the command
+line: ``gix_arrays`` of one genome, of which only the finished entry rows
+come back to the host as an io.gix.GixTable.
 """
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
+from ..io import gix as gixm
 from ..io.gix import _length_perm
 from ..utils import prof
 from ..utils.dna import compress
@@ -997,3 +1004,60 @@ def device_tubes(gdb1, gdb2, alens_by_rank, freq: int = 10,
         return _finish_tubes(
             res, ns, nalive, plsum, NSCAP, ACAP,
             lambda: ne1 > E1 or ne2 > E2 or nt_host > tcap_eff)
+
+
+# ---------------------------------------------------------------------------
+# One genome's GIX table for gixmake and the command line
+# ---------------------------------------------------------------------------
+
+def build_gix_device(gdb, device=None):
+    """io.gix.GixTable of one genome (k = KMER, no masks, the 8-thread
+    contig padding) from ``gix_arrays`` on ``device`` (default: the card);
+    only the finished entry rows cross to the host.
+
+    A genome past a cap the JAX package checks before any upload (total
+    bases, contig count, contig length) is built on the host by
+    io.gix.build_gix, and a line on stderr says so.  The entry count is
+    known only on the device: past the table's cap it raises RuntimeError,
+    as in device_tubes."""
+    dev = torch.device("cuda" if device is None else device)
+    lens = gdb.contig_lengths()
+    reason = None
+    if len(lens) == 0:
+        reason = "no contigs"
+    elif int(lens.sum()) > _MAX_DEV_BASES:
+        reason = "genome exceeds single-shot device bases"
+    elif len(lens) >= MAX_CONT:
+        reason = f">= {MAX_CONT} contigs"
+    elif int(lens.max()) >= MAX_POST:
+        reason = "contig length exceeds device field width"
+    if reason is not None:
+        sys.stderr.write(f"fastga_tpu: device GIX build declined "
+                         f"({reason}); building the index on the host\n")
+        return gixm.build_gix(gdb)
+    with prof.span("devpipe.gix", dev):
+        bps, coff, clen, invp, nc, N = _prep_genome(gdb, lens, dev)
+        E = max(1 << 12, N)
+        T = gix_arrays(bps, coff, clen, invp, nc, ecap=E)
+        n = int(T[7])
+        if n > E:
+            _over_cap("GIX entry cap exceeded")
+        w0, w1, w2, cont, post, comp, lcp = (_numpy(x[:n]) for x in T[:7])
+    w0, w1, w2 = (w.view(np.uint32) for w in (w0, w1, w2))
+    kbytes = np.empty((n, KMER // 4), np.uint8)
+    for j in range(4):
+        kbytes[:, j] = (w0 >> (24 - 8 * j)).astype(np.uint8)
+        kbytes[:, 4 + j] = (w1 >> (24 - 8 * j)).astype(np.uint8)
+    kbytes[:, 8] = (w2 >> 24).astype(np.uint8)
+    kbytes[:, 9] = (w2 >> 16).astype(np.uint8)
+    nfake = max(0, 8 - len(lens))
+    lens_eff = np.concatenate([lens, np.full(nfake, KMER, np.int64)])
+    return gixm.GixTable(
+        kmer=KMER, kbytes=kbytes, post=post.astype(np.int32),
+        cont=cont.astype(np.int32), comp=comp.astype(bool),
+        lcp=np.minimum(lcp, KMER).astype(np.uint8),
+        maskb=np.zeros(n, np.uint8), prefix_index=gixm._prefix_index(kbytes),
+        perm=_length_perm(lens_eff)[0],
+        post_bytes=gixm._bytes_for(int(lens_eff.max())),
+        cont_bytes=gixm._bytes_for(2 * len(lens_eff)),
+        seqtot=gdb.seqtot + nfake * KMER)

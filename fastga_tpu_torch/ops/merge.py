@@ -264,6 +264,93 @@ def _self_chunk(t1: GixTable, sel: np.ndarray, adj: np.ndarray,
             t1.comp[xs] != t1.comp[ys])
 
 
+def adaptamer_seeds_flip(t1: GixTable, t2: GixTable, freq: int = 10,
+                         soft_mask: bool = False,
+                         chunk: int = 1 << 20) -> SeedBatch:
+    """The -S symmetric second pass: T2 entries drive the adaptamer
+    grouping, matched T1 members (forward only) become the A side
+    (new_merge_thread flip branch FastGA.c:833-913).  Catches seeds
+    whose k-mer is unique in G2 but repetitive in G1."""
+    kmer = t1.kmer
+    idx = np.arange(t2.n)
+    out = []
+    for lo in range(0, len(idx), chunk):
+        sel = idx[lo : lo + chunk]
+        out.append(_flip_chunk(t1, t2, sel, freq, soft_mask))
+    if not out:
+        z = np.zeros(0, dtype=np.int32)
+        return SeedBatch(z.astype(np.uint8), z, z, z, z, z.astype(bool))
+    return SeedBatch(*[np.concatenate([o[k] for o in out])
+                       for k in range(6)])
+
+
+def _flip_chunk(t1: GixTable, t2: GixTable, sel: np.ndarray,
+                freq: int, soft_mask: bool):
+    """Like _merge_chunk with roles swapped: driver entries are t2's (any
+    orientation); group members come from t1; emitted pairs are
+    (A = t1 member if forward, B = t2 driver)."""
+    kmer = t2.kmer
+    n1 = t1.n
+    k2 = t2.kbytes[sel]
+    ins = _rank_into(k2, t1.kbytes)
+
+    pred_ok = ins > 0
+    succ_ok = ins < n1
+    pred_rows = t1.kbytes[np.clip(ins - 1, 0, max(n1 - 1, 0))]
+    succ_rows = t1.kbytes[np.clip(ins, 0, max(n1 - 1, 0))]
+    lcp_pred = np.where(pred_ok, _row_lcp(k2, pred_rows, kmer), -1)
+    lcp_succ = np.where(succ_ok, _row_lcp(k2, succ_rows, kmer), -1)
+    plen = np.maximum(lcp_pred, lcp_succ)
+    alive = plen >= 12
+
+    F = freq
+    m = len(sel)
+    l1 = np.minimum(t1.lcp.astype(np.int32), kmer)
+    up_ok = np.zeros((m, F), dtype=bool)
+    down_ok = np.zeros((m, F), dtype=bool)
+    if n1:
+        up_ok[:, 0] = (lcp_succ >= plen) & succ_ok & alive
+        for u in range(1, F):
+            j = ins + u
+            up_ok[:, u] = up_ok[:, u - 1] & (j < n1) \
+                & (l1[np.clip(j, 0, n1 - 1)] >= plen)
+        down_ok[:, 0] = (lcp_pred >= plen) & pred_ok & alive
+        for d in range(1, F):
+            j = ins - d
+            down_ok[:, d] = down_ok[:, d - 1] & (j - 1 >= 0) \
+                & (l1[np.clip(j, 0, n1 - 1)] >= plen)
+
+    count = up_ok.sum(axis=1) + down_ok.sum(axis=1)
+    alive &= count < freq
+    mlen = np.where(soft_mask, plen, kmer + 1)
+    alive &= t2.maskb[sel] < mlen
+
+    emit_up = up_ok & alive[:, None]
+    emit_dn = down_ok & alive[:, None]
+    y_up = ins[:, None] + np.arange(F)[None, :]
+    y_dn = ins[:, None] - 1 - np.arange(F)[None, :]
+
+    ys = np.concatenate([y_up[emit_up], y_dn[emit_dn]])   # t1 members
+    xs = np.concatenate([
+        np.broadcast_to(sel[:, None], (m, F))[emit_up],
+        np.broadcast_to(sel[:, None], (m, F))[emit_dn]])  # t2 drivers
+    pl = np.concatenate([
+        np.broadcast_to(plen[:, None], (m, F))[emit_up],
+        np.broadcast_to(plen[:, None], (m, F))[emit_dn]])
+
+    mlen_y = np.where(soft_mask, pl, kmer + 1)
+    keep = (t1.maskb[ys] < mlen_y) & ~t1.comp[ys]   # A side forward only
+    xs, ys, pl = xs[keep], ys[keep], pl[keep]
+
+    o = np.lexsort((xs, ys))
+    xs, ys, pl = xs[o], ys[o], pl[o]
+
+    return (pl.astype(np.uint8),
+            t1.cont[ys], t1.post[ys],
+            t2.cont[xs], t2.post[xs],
+            t2.comp[xs])
+
+
 def _halves(k: np.ndarray) -> np.ndarray:
     """Rows of <=10 key bytes -> complex128 (hi 5 bytes, lo 5 bytes).
     40-bit halves are float64-exact, and numpy compares complex

@@ -83,3 +83,37 @@ def trace(out_dir):
     with torch.profiler.profile(activities=acts) as p:
         yield p
     p.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+
+
+class PhaseTimer:
+    """Reference-style per-phase resource reports (StartTime/TimeTo,
+    gene_core.h:178-180): 'u s w %cpu MB' printed after each phase under
+    -v / appended to the -L log."""
+
+    def __init__(self, out=None):
+        import resource
+        self._res = resource
+        self.out = out
+        self._mark()
+
+    def _mark(self):
+        r = self._res.getrusage(self._res.RUSAGE_SELF)
+        self._u, self._s = r.ru_utime, r.ru_stime
+        self._w = time.perf_counter()
+
+    def phase(self, label=""):
+        """Emit resources consumed since the last mark and re-mark."""
+        r = self._res.getrusage(self._res.RUSAGE_SELF)
+        du = r.ru_utime - self._u
+        ds = r.ru_stime - self._s
+        dw = time.perf_counter() - self._w
+        pct = 100.0 * (du + ds) / dw if dw > 0 else 0.0
+        mb = r.ru_maxrss // 1024
+        line = (f"\n  Resources for {label or 'phase'}:  {du:.3f}u  "
+                f"{ds:.3f}s  {dw:.3f}w  {pct:.1f}%  {mb}MB\n")
+        for o in (self.out if isinstance(self.out, (list, tuple))
+                  else [self.out]):
+            if o is not None:
+                o.write(line)
+        self._mark()
+        return line

@@ -20,6 +20,8 @@ def test_port_imports_no_jax():
         m.name for m in pkgutil.walk_packages(fastga_tpu_torch.__path__,
                                               "fastga_tpu_torch.")]
     assert "fastga_tpu_torch.ops.wave_kernels" in mods
+    assert {"fastga_tpu_torch.cli.fastga", "fastga_tpu_torch.cli.gixmake",
+            "fastga_tpu_torch.cli.alntopaf"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"

@@ -442,7 +442,7 @@ def test_align_genomes_device_seeds(tmp_path, capsys):
     assert len(ref) > 0
     assert [_key(o) for o in got] == [_key(o) for o in ref]
     _, dstats = tal.align_genomes(
-        g1, g2, tal.FastGAParams(freq=11), device="cpu", cfg=cfg)
+        g1, g2, params=tal.FastGAParams(freq=11), device="cpu", cfg=cfg)
     assert dstats["seed_pipeline"] == "host"
     assert dstats["seed_decline"] == "-f 11 > device merge cap 10"
     assert "device seed pipeline declined" in capsys.readouterr().err

@@ -52,9 +52,10 @@ Phases (every one runs; any failure exits non-zero before the summary):
 8. the device busy share of the uniform run under torch.profiler (its
    Chrome trace goes to fastga_tpu_torch/_build/profile/);
 9. the command line (fastga_tpu_torch.cli), in process on the card, with
-   its files under fastga_tpu_torch/_build/cli/: `fastga -T1 S.fasta` and
-   `alntopaf` of its `-1:` file give tests/golden/ref_self.paf (the C
-   reference's PAF) byte for byte, and `fastga -1:` on the E/F pair the C
+   its files under fastga_tpu_torch/_build/cli/: `fastga -T1 S.fasta`
+   (self seeds on the card) and `alntopaf` of its `-1:` file give
+   tests/golden/ref_self.paf (the C reference's PAF) byte for byte, and
+   `fastga -1:` on the E/F pair the C
    reference's three records; `fastga -v -1:X.1aln A B` and `fastga -v A B`
    on the uniform and repeat-rich scenarios (written as FASTA) give the
    records of phases 4-5 (read back from the .1aln) and as many PAF lines,
@@ -63,7 +64,21 @@ Phases (every one runs; any failure exits non-zero before the summary):
    -m fastga_tpu_torch.cli.fastga` subprocess on a small mutated pair
    prints the in-process PAF; `gixmake` (the device GIX build) on the
    uniform FASTAs writes the host build's .gix files byte for byte, and
-   `fastga A.gix B.gix` gives the uniform records.
+   `fastga A.gix B.gix` gives the uniform records;
+10. the self and kmer-panel seed routes: align_genomes(A, A) on the
+   repeat-rich A genome takes device_tubes_self (its expansion past the
+   JAX package's seed cap, its chain in A-contig panels) with every kernel
+   launched and the host seed path's TubeBatch, seeds and seed-length sum;
+   device_tubes_paneled(panels=4) on the uniform and repeat-rich pairs and
+   on A as self equals phases 4-5 and the self run; the uniform pair at
+   2,560 x 50 kb (128 Mbp a side, past _MAX_DEV_BASES) goes through
+   device_tubes' decline to device_tubes_paneled, with every kernel
+   launched and the TubeBatch of a single-shot device_tubes (its
+   _MAX_DEV_BASES raised for that one call; at 96 Mbp if 128 Mbp does not
+   fit on the card); each route's peak device memory; then merge_path
+   and fused_scan against their plain versions, bit for bit, on the
+   largest input of each column count and scan spec these routes gave
+   them, with kernel ms, plain ms and the byte bound.
 
 The second-to-last line is the per-kernel JSON summary, the last line the
 device summary.
@@ -729,51 +744,101 @@ def compare_trees(parent):
 
 
 class SeedCapture:
-    """Wraps the device pipeline's kernel entry points (and device_tubes)
-    for one main-path run, to keep the inputs the path gave the kernels
-    (per merge column count and per scan spec, the largest call) and the
-    TubeBatch it made.  The wrapped calls launch the kernels as before."""
+    """Wraps the device pipeline's kernel entry points and its seed routes
+    (device_tubes, device_tubes_self, device_tubes_paneled) for one run, to
+    keep the inputs the run gave the kernels (per merge column count and
+    per scan spec, the largest call), each route called with whether it
+    declined and its peak device memory (``max_memory_allocated`` above
+    the allocation at its start), the TubeBatch and arguments of the route
+    that returned one, the panel counts the paneled route ran at and the
+    chain sweep's A-contig panels.  The wrapped calls launch the kernels
+    as before.  ``inputs=False`` keeps no kernel inputs (they would stay
+    alive past their use and raise the routes' peak memory)."""
 
-    def __init__(self):
+    ROUTES = ("device_tubes", "device_tubes_self", "device_tubes_paneled")
+
+    def __init__(self, inputs=True):
+        self.inputs = inputs
         self.merge = {}
         self.scan = {}
         self.scan_calls = {}
         self.tubes = None
         self.tubes_args = None
+        self.routes = []
+        self.mem = {}
+        self.panels = []
+        self.chain_panels = 0
 
     def __enter__(self):
+        import torch
+
         from fastga_tpu_torch.ops import device_pipeline as tp
-        self._orig = (tp.merge_sorted_streams, tp.fused_scan,
-                      tp.device_tubes)
-        merge, scan, tubes = self._orig
+        names = (("merge_sorted_streams", "fused_scan", "_panel_caps",
+                  "_chain_panel") + self.ROUTES)
+        self._orig = {n: getattr(tp, n) for n in names}
+        orig = self._orig
 
         def merge_w(opsA, opsB):
             m = opsA[0].shape[0] + opsB[0].shape[0]
             old = self.merge.get(len(opsA))
-            if old is None or m > old[0][0].shape[0] + old[1][0].shape[0]:
+            if self.inputs and (old is None or m > old[0][0].shape[0]
+                                + old[1][0].shape[0]):
                 self.merge[len(opsA)] = (opsA, opsB)
-            return merge(opsA, opsB)
+            return orig["merge_sorted_streams"](opsA, opsB)
 
         def scan_w(values, spec, flags=(), reverse=False):
             key = (tuple(spec), len(flags), bool(reverse))
             self.scan_calls[key] = self.scan_calls.get(key, 0) + 1
             old = self.scan.get(key)
-            if old is None or values[0].shape[0] > old[0][0].shape[0]:
+            if self.inputs and (old is None
+                                or values[0].shape[0] > old[0][0].shape[0]):
                 self.scan[key] = (tuple(values), tuple(flags))
-            return scan(values, spec, flags, reverse)
+            return orig["fused_scan"](values, spec, flags, reverse)
 
-        def tubes_w(*a, **k):
-            self.tubes_args = (a, k)
-            self.tubes = tubes(*a, **k)
-            return self.tubes
+        def caps_w(N1, N2, P, selfish):
+            self.panels.append(P)
+            return orig["_panel_caps"](N1, N2, P, selfish)
 
-        tp.merge_sorted_streams, tp.fused_scan, tp.device_tubes = (
-            merge_w, scan_w, tubes_w)
+        def chain_w(*a):
+            self.chain_panels += 1
+            return orig["_chain_panel"](*a)
+
+        def route_w(name):
+            def w(*a, **k):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                res = orig[name](*a, **k)
+                torch.cuda.synchronize()
+                self.mem[name] = torch.cuda.max_memory_allocated() - base
+                self.routes.append((name, res is not None))
+                if res is not None:
+                    self.tubes, self.tubes_args = res, (a, k)
+                return res
+            return w
+
+        tp.merge_sorted_streams, tp.fused_scan = merge_w, scan_w
+        tp._panel_caps, tp._chain_panel = caps_w, chain_w
+        for n in self.ROUTES:
+            setattr(tp, n, route_w(n))
         return self
 
     def __exit__(self, *exc):
         from fastga_tpu_torch.ops import device_pipeline as tp
-        tp.merge_sorted_streams, tp.fused_scan, tp.device_tubes = self._orig
+        for n, f in self._orig.items():
+            setattr(tp, n, f)
+
+    def fold_into(self, merge, scan):
+        """Keep this run's kernel inputs in ``merge`` / ``scan`` where
+        they are the largest call of their column count / spec."""
+        for key, ops in self.merge.items():
+            old = merge.get(key)
+            if old is None or (ops[0][0].shape[0] + ops[1][0].shape[0]
+                               > old[0][0].shape[0] + old[1][0].shape[0]):
+                merge[key] = ops
+        for key, vf in self.scan.items():
+            if key not in scan or vf[0][0].shape[0] > scan[key][0][0].shape[0]:
+                scan[key] = vf
 
 
 class WaveCapture:
@@ -1135,18 +1200,14 @@ def tube_diff(want, got):
 
 
 def check_host_tubes(g1, g2, tubes):
-    """The device TubeBatch against the host seed path's (the path of self
-    comparison and engine="ref") on the same input, every field."""
+    """The device TubeBatch against the host seed path's (the path of
+    masks, -S and engine="ref") on the same input, every field."""
     from fastga_tpu_torch.io.gix import build_gix
     from fastga_tpu_torch.ops import chain as chainm, merge as mergem
     t1, t2 = build_gix(g1), build_gix(g2)
     seeds = mergem.adaptamer_seeds(t1, t2, freq=10)
-    lens1, lens2 = g1.contig_lengths(), g2.contig_lengths()
-    perm = np.asarray(t1.perm)
-    alens = np.where(perm < len(lens1),
-                     lens1[np.minimum(perm, len(lens1) - 1)], t1.kmer)
-    host = chainm.chain_tubes(seeds, int(lens1.max()), int(lens2.max()),
-                              alens)
+    host = chainm.chain_tubes(seeds, int(g1.contig_lengths().max()),
+                              int(g2.contig_lengths().max()), alens_of(g1))
     bad = tube_diff(host, tubes)
     if bad:
         raise SystemExit(f"uniform: device TubeBatch ({tubes.n} tubes) "
@@ -1200,15 +1261,13 @@ def phase_uniform():
         ovls, stats, wall = run_main_path("uniform", g1, g2)
         launches = dict(cuda_build.LAUNCHES)
     main_run = scenario_files("uniform", g1, g2, ovls, wall)
-    log(f"  launches[uniform]: {json.dumps(launches)}")
+    check_launches("uniform", launches)
     wcap.report("uniform")
     if (stats["nlive"], stats["cov"]) != UNIFORM_EXPECT:
         raise SystemExit(f"uniform: nlive {stats['nlive']} cov "
                          f"{stats['cov']}; expected {UNIFORM_EXPECT}")
     check_seeds("uniform", stats, UNIFORM_SEEDS)
-    for name in KERNELS:
-        if launches.get(name, 0) <= 0:
-            raise SystemExit(f"uniform: kernel {name} was never launched")
+    check_routes("uniform", cap, [("device_tubes", True)])
     check_host_tubes(g1, g2, cap.tubes[0])
     check_paneled(cap)
     return launches, cap, main_run
@@ -1248,8 +1307,9 @@ def phase_repeatrich(mbp):
         raise SystemExit(f"repeatrich: nlive {stats['nlive']} cov "
                          f"{stats['cov']}; expected {REPEAT_RICH_EXPECT}")
     check_seeds("repeatrich", stats, REPEAT_RICH_SEEDS)
+    check_routes("repeatrich", cap, [("device_tubes", True)])
     profile_kernels("repeatrich", g1, g2)
-    return launches, cap, main_run
+    return launches, cap, main_run, g1
 
 
 def phase_rescue():
@@ -1493,18 +1553,30 @@ def cli_goldens(d):
     s_fa = os.path.join(d, "S.fasta")
     self_fasta(s_fa)
     gold = open(os.path.join(HERE, "tests", "golden", "ref_self.paf")).read()
-    paf, _, wall = run_cli("fastga", ["-T1", s_fa])
+    from fastga_tpu_torch.models import aligner
+    align, seen = aligner.align_genomes, []
+    aligner.align_genomes = lambda *a, **k: seen.append(align(*a, **k)) \
+        or seen[-1]
+    try:
+        paf, _, wall = run_cli("fastga", ["-T1", s_fa])
+    finally:
+        aligner.align_genomes = align
     if paf != gold:
         raise SystemExit("cli: fastga -T1 S.fasta differs from "
                          "tests/golden/ref_self.paf")
+    if [st["seed_pipeline"] for _, st in seen] != ["device"]:
+        raise SystemExit(f"cli: fastga -T1 S.fasta seeded on "
+                         f"{[st.get('seed_pipeline') for _, st in seen]}, "
+                         f"not the device")
     aln = os.path.join(d, "self")
     run_cli("fastga", ["-T1", f"-1:{aln}", s_fa])
     paf2, _, _ = run_cli("alntopaf", [aln + ".1aln"])
     if paf2 != gold:
         raise SystemExit("cli: alntopaf of fastga -T1 -1: S.fasta differs "
                          "from tests/golden/ref_self.paf")
-    log(f"cli goldens: fastga -T1 S.fasta and alntopaf of its .1aln equal "
-        f"ref_self.paf ({gold.count(chr(10))} lines; fastga {wall:.3f} s)")
+    log(f"cli goldens: fastga -T1 S.fasta (device self seeds) and alntopaf "
+        f"of its .1aln equal ref_self.paf ({gold.count(chr(10))} lines; "
+        f"fastga {wall:.3f} s)")
     a, b = diverged_pair()
     e_fa, f_fa = os.path.join(d, "E.fasta"), os.path.join(d, "F.fasta")
     write_fasta(e_fa, ["e1"], [a], width=60)
@@ -1652,6 +1724,295 @@ def phase_cli(run_u, run_rr):
     log(f"cli: phase {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 10: self comparison and kmer-panel streaming ----------------------
+
+BIG_CONTIGS = 2560    # uniform pair past _MAX_DEV_BASES: 128 Mbp a side
+
+
+def alens_of(g):
+    """Contig length by rank, the aligner's for a run without tables."""
+    from fastga_tpu_torch.io.gix import _length_perm
+    lens = g.contig_lengths()
+    lens_eff = np.concatenate([lens, np.full(max(0, 8 - len(lens)), 40)])
+    perm = _length_perm(lens_eff)[0]
+    return np.where(perm < len(lens), lens[np.minimum(perm, len(lens) - 1)],
+                    40)
+
+
+def check_routes(name, cap, want):
+    if cap.routes != want:
+        raise SystemExit(f"{name}: device seed routes {cap.routes}; "
+                         f"expected {want}")
+
+
+def check_launches(name, launches):
+    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise SystemExit(f"{name}: kernels {missing} were never launched")
+    log(f"  launches[{name}]: {json.dumps(launches)}")
+
+
+def check_host_self(g, got):
+    """The self run's TubeBatch, seed count and seed-length sum against the
+    host seed path's on the same genome (build_gix, self_adaptamer_seeds,
+    chain_tubes), each step timed."""
+    from fastga_tpu_torch.io.gix import build_gix
+    from fastga_tpu_torch.ops import chain as chainm, merge as mergem
+    tubes, ns, pl = got
+    t0 = time.perf_counter()
+    t = build_gix(g)
+    t1 = time.perf_counter()
+    seeds = mergem.self_adaptamer_seeds(t, freq=10)
+    t2 = time.perf_counter()
+    amax = int(g.contig_lengths().max())
+    host = chainm.chain_tubes(seeds, amax, amax, alens_of(g))
+    t3 = time.perf_counter()
+    hpl = int(seeds.plen.astype(np.int64).sum())
+    bad = tube_diff(host, tubes)
+    if bad or (ns, pl) != (seeds.n, hpl):
+        raise SystemExit(f"self: device TubeBatch ({tubes.n} tubes, {ns} "
+                         f"seeds, length sum {pl}) differs from the host "
+                         f"path's ({host.n}, {seeds.n}, {hpl}): {bad}")
+    log(f"self: device TubeBatch, seeds and seed-length sum equal to the "
+        f"host path's ({host.n:,} tubes, {seeds.n:,} seeds, length sum "
+        f"{hpl:,}); host seeding {t3 - t0:.3f} s = build_gix "
+        f"{t1 - t0:.3f} + self_adaptamer_seeds {t2 - t1:.3f} + chain_tubes "
+        f"{t3 - t2:.3f}")
+
+
+def run_self(g):
+    """align_genomes(g, g) on the card: device_tubes_self (with the chain
+    in A-contig panels past CHAIN_DEV_CAP seeds), every kernel launched,
+    the host path's TubeBatch."""
+    from fastga_tpu_torch.ops import cuda_build
+    with SeedCapture() as cap:
+        cuda_build.reset_launches()
+        _, stats, wall = run_main_path("self", g, g)
+        launches = dict(cuda_build.LAUNCHES)
+    check_routes("self", cap, [("device_tubes_self", True)])
+    if stats.get("seed_pipeline") != "device":
+        raise SystemExit(f"self: seed pipeline {stats.get('seed_pipeline')}")
+    check_launches("self", launches)
+    from fastga_tpu_torch.ops import device_pipeline as tp
+    cap2 = 2 * max(1 << 12, tp._pad_bucket(int(g.contig_lengths().sum())))
+    rerun = tp._pad_bucket(cap.tubes[1])
+    log(f"self: the JAX package's seed cap 2 * E1 = {cap2:,}"
+        + (f": exceeded, the expansion reran at {rerun:,} slots"
+           if cap.tubes[1] > cap2 else ""))
+    log(f"self: device_tubes_self, {cap.tubes[1]:,} seeds, "
+        f"{cap.tubes[0].n:,} tubes, chain in {cap.chain_panels} A-contig "
+        f"panels")
+    route_alone("self (its GIX table cached)", "device_tubes_self",
+                *cap.tubes_args)
+    check_host_self(g, cap.tubes)
+    return cap, launches
+
+
+def route_alone(what, name, args, kwargs):
+    """One more call of a seed route on the arguments a run gave it, with
+    no kernel inputs kept: its seeding time and peak device memory."""
+    import torch
+
+    from fastga_tpu_torch.ops import device_pipeline as tp
+    with SeedCapture(inputs=False) as cap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        getattr(tp, name)(*args, **kwargs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    log(f"{what}: {name} alone {dt:.3f} s, peak device memory "
+        f"{cap.mem[name] / 2**30:.3f} GiB")
+
+
+def check_forced_panels(name, ref, selfish):
+    """device_tubes_paneled(panels=4) on a route's arguments: the route's
+    TubeBatch, seed count and seed-length sum."""
+    import torch
+
+    from fastga_tpu_torch.ops import device_pipeline as tp
+    want, (a, k) = ref
+    with SeedCapture() as cap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if selfish:
+            got = tp.device_tubes_paneled(a[0], None, a[1], panels=4, **k)
+        else:
+            got = tp.device_tubes_paneled(a[0], a[1], a[2], panels=4, **k)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    bad = tube_diff(want[0], got[0])
+    if bad or got[1:] != want[1:]:
+        raise SystemExit(f"{name} panels=4: {got[0].n} tubes, {got[1]} "
+                         f"seeds, length sum {got[2]}; differs from "
+                         f"{want[0].n}, {want[1]}, {want[2]}: {bad}")
+    log(f"{name} panels=4: ran at {cap.panels} panels, TubeBatch, seeds and "
+        f"seed-length sum equal ({got[0].n:,} tubes, {got[1]:,} seeds); "
+        f"{dt:.3f} s")
+    return cap
+
+
+def big_pair(ncontig):
+    from fastga_tpu_torch.utils import synth
+    t0 = time.perf_counter()
+    pair = synth.uniform_pair(np.random.default_rng(0xBE7C4), ncontig,
+                              50_000)
+    g1, g2 = (synth.to_gdb(t, pair[t.upper()])[0] for t in "ab")
+    log(f"uniform{ncontig}: {ncontig} x 50 kb a side "
+        f"({int(g1.contig_lengths().sum()):,} / "
+        f"{int(g2.contig_lengths().sum()):,} bases; gen "
+        f"{time.perf_counter() - t0:.1f} s)")
+    return g1, g2
+
+
+def same_tubes(what, want, got, other):
+    bad = tube_diff(want[0], got[0])
+    if bad or got[1:] != want[1:]:
+        raise SystemExit(f"{what}: paneled TubeBatch ({got[0].n}, {got[1]}, "
+                         f"{got[2]}) differs from the {other}'s "
+                         f"({want[0].n}, {want[1]}, {want[2]}): {bad}")
+    log(f"{what}: TubeBatch, seeds and seed-length sum equal to the "
+        f"{other}'s ({got[0].n:,} tubes, {got[1]:,} seeds)")
+
+
+def single_shot(g1, g2, what):
+    """device_tubes of a pair with _MAX_DEV_BASES raised for this one call
+    (timed, with its peak device memory), or None when it does not fit on
+    the card."""
+    import torch
+
+    from fastga_tpu_torch.ops import device_pipeline as tp
+    old = tp._MAX_DEV_BASES
+    tp._MAX_DEV_BASES = 1 << 28
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    try:
+        with SeedCapture(inputs=False) as cap:
+            t0 = time.perf_counter()
+            got = tp.device_tubes(g1, g2, alens_of(g1), device="cuda")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+    except torch.cuda.OutOfMemoryError as e:
+        log(f"{what}: the single-shot route does not fit on the card "
+            f"({base / 2**30:.3f} GiB allocated before it; "
+            f"{str(e).splitlines()[0]})")
+        return None
+    finally:
+        tp._MAX_DEV_BASES = old
+    log(f"{what}: single-shot device_tubes {dt:.3f} s, {got[1]:,} seeds, "
+        f"{got[0].n:,} tubes, peak device memory "
+        f"{cap.mem['device_tubes'] / 2**30:.3f} GiB above the "
+        f"{base / 2**30:.3f} GiB allocated before it")
+    return got
+
+
+def run_big():
+    """The 128 Mbp uniform pair: first a single-shot device_tubes of it
+    (its _MAX_DEV_BASES raised), then align_genomes, which must route it
+    to device_tubes_paneled on the card (device_tubes declines past
+    _MAX_DEV_BASES) and give the same TubeBatch.  If the single-shot route
+    does not fit on the card, the comparison runs at 96 Mbp (the paneled
+    route called directly)."""
+    import torch
+
+    from fastga_tpu_torch.ops import cuda_build
+    from fastga_tpu_torch.ops import device_pipeline as tp
+    g1, g2 = big_pair(BIG_CONTIGS)
+    want = single_shot(g1, g2, "uniform128")
+    torch.cuda.empty_cache()
+    with SeedCapture() as cap:
+        cuda_build.reset_launches()
+        ovls, stats, wall = run_main_path("uniform128", g1, g2)
+        launches = dict(cuda_build.LAUNCHES)
+    del ovls
+    check_routes("uniform128", cap, [("device_tubes", False),
+                                     ("device_tubes_paneled", True)])
+    if stats.get("seed_pipeline") != "device":
+        raise SystemExit(f"uniform128: seed pipeline "
+                         f"{stats.get('seed_pipeline')}")
+    check_launches("uniform128", launches)
+    log(f"uniform128: device_tubes_paneled at {cap.panels[-1]} panels "
+        f"({cap.panels}), {cap.tubes[1]:,} seeds, {cap.tubes[0].n:,} tubes, "
+        f"chain in {cap.chain_panels} A-contig panels")
+    route_alone("uniform128", "device_tubes_paneled", *cap.tubes_args)
+    if want is not None:
+        same_tubes("uniform128", want, cap.tubes, "single-shot route")
+        return cap, launches
+    del g1, g2
+    cap.tubes = cap.tubes_args = None
+    torch.cuda.empty_cache()
+    n = BIG_CONTIGS * 3 // 4
+    s1, s2 = big_pair(n)
+    want = single_shot(s1, s2, f"uniform{n}")
+    if want is None:
+        raise SystemExit(f"uniform{n}: the single-shot route does not fit "
+                         f"on the card either")
+    got = tp.device_tubes_paneled(s1, s2, alens_of(s1), device="cuda")
+    same_tubes(f"uniform{n}", want, got, "single-shot route")
+    return cap, launches
+
+
+def drop_device_tables(gdbs):
+    """Free the GIX tables the device pipeline cached on these GDBs."""
+    import torch
+    for g in gdbs:
+        vars(g).pop("_fastga_torch_dev_cache", None)
+    torch.cuda.empty_cache()
+
+
+def phase_seed_routes(g_rr, rr_ref, u_ref):
+    """Phase 10: the self and kmer-panel seed routes on the card, then
+    merge_path and fused_scan against their plain versions on the largest
+    inputs of each column count and spec these routes gave them.  The 128
+    Mbp pair runs first, with the earlier phases' cached device tables
+    freed: its single-shot reference needs most of the card."""
+    t0 = time.perf_counter()
+    merge, scan = {}, {}
+    drop_device_tables([g_rr] + list(rr_ref[1][0][:2])
+                       + list(u_ref[1][0][:2]))
+    cap_b, launches_b = run_big()
+    cap_b.fold_into(merge, scan)
+    del cap_b
+    cap_s, launches_s = run_self(g_rr)
+    cap_s.fold_into(merge, scan)
+    self_ref = (cap_s.tubes, cap_s.tubes_args)
+    del cap_s
+    for name, ref, selfish in (("uniform", u_ref, False),
+                               ("repeatrich", rr_ref, False),
+                               ("self", self_ref, True)):
+        check_forced_panels(name, ref, selfish).fold_into(merge, scan)
+    del self_ref
+    kern = seed_kernel_rows(merge, scan, "routes")
+    log(f"seed routes: phase {time.perf_counter() - t0:.1f} s")
+    return launches_s, launches_b, kern
+
+
+def seed_kernel_rows(merge, scan, tag):
+    """merge_path and fused_scan against their plain versions on captured
+    inputs, every merge column count and every scan spec, timed."""
+    rows = {"merge_path": [], "fused_scan": []}
+    for ncol, (opsA, opsB) in sorted(merge.items()):
+        r = check_merge(opsA, opsB)
+        log(f"merge_path[{tag}] E1={r['shape'][0]} E2={r['shape'][1]} "
+            f"cols={r['shape'][2]}: unequal rows {r['err']} kernel "
+            f"{r['ms']:.4f} ms plain {r['plain_ms']:.3f} ms bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+        rows["merge_path"].append(r)
+    for (spec, _, reverse), (values, flags) in sorted(
+            scan.items(), key=lambda kv: -len(kv[0][0])
+            * kv[1][0][0].shape[0]):
+        r = check_scan(values, spec, flags, reverse)
+        log(f"fused_scan[{tag}] M={r['shape'][0]} {_spec_str(spec)} "
+            f"flags={len(flags)} reverse={reverse}: max_abs_err {r['err']} "
+            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.3f} ms bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+        rows["fused_scan"].append(r)
+    for name, rs in rows.items():
+        if not rs or max(x["err"] for x in rs) != 0:
+            raise SystemExit(f"{name}[{tag}]: kernel disagrees with its "
+                             f"plain version or was not called: {rs}")
+    return rows
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -1683,16 +2044,32 @@ def main(argv):
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
 
+    def done(phase):
+        log(f"[{time.perf_counter() - t0:.1f} s] phase {phase} done")
+
     spec = AlignSpec(0.7, 100, False, (0.25, 0.25, 0.25, 0.25))
     kern = phase_kernels(spec)
+    done(2)
     phase_rescue()
+    done(3)
     launches, cap_u, run_u = phase_uniform()
-    launches_rr, cap_rr, run_rr = phase_repeatrich(REPEAT_RICH_MBP)
+    done(4)
+    launches_rr, cap_rr, run_rr, g_rr = phase_repeatrich(REPEAT_RICH_MBP)
+    done(5)
     kern.update(phase_seed_kernels(cap_u, cap_rr))
+    u_ref = (cap_u.tubes, cap_u.tubes_args)
+    rr_ref = (cap_rr.tubes, cap_rr.tubes_args)
     del cap_u, cap_rr
+    done(6)
     phase_exact()
+    done(7)
     phase_profile()
+    done(8)
     phase_cli(run_u, run_rr)
+    done(9)
+    launches_s, launches_b, _ = phase_seed_routes(g_rr, rr_ref, u_ref)
+    del g_rr, rr_ref, u_ref
+    done(10)
 
     summary = []
     for name, src, rep in (
@@ -1713,8 +2090,9 @@ def main(argv):
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=None,
             equal=k["max_abs_err"] == 0))
-    log(f"launches (uniform / repeatrich): " + ", ".join(
-        f"{n} {launches[n]} / {launches_rr[n]}" for n in KERNELS))
+    log(f"launches (uniform / repeatrich / self / uniform128): " + ", ".join(
+        f"{n} {launches[n]} / {launches_rr[n]} / {launches_s[n]} / "
+        f"{launches_b[n]}" for n in KERNELS))
     for row in summary:
         if not row["equal"] or row["launches"] <= 0 or row["ms"] is None:
             raise SystemExit(f"kernel row incomplete: {row}")

@@ -1,10 +1,12 @@
 """FastGA pipeline driver: seeds -> tubes -> wave alignments -> dedup.
 
-Port of fastga_tpu/models/aligner.py.  A two-genome comparison takes its
-tubes from the device seed pipeline (ops/device_pipeline.py: GIX tables,
-adaptamer merge and chain sweep on the card); self comparison, masks, the
--S pass and the exact engine build them on the host (io/gix, ops/merge,
-ops/chain), from the caller's GIX tables where it passes them.  The
+Port of fastga_tpu/models/aligner.py.  A two-genome comparison, and a
+self comparison without given tables, take their tubes from the device
+seed pipeline (ops/device_pipeline.py: GIX tables, adaptamer merge and
+chain sweep on the card, streamed in kmer panels past the single-shot
+bases); masks, the -S pass, self comparison with given tables and the
+exact engine build them on the host (io/gix, ops/merge, ops/chain), from
+the caller's GIX tables where it passes them.  The
 per-tube anti-diagonal tiling loop around Local_Alignment
 (FastGA.c:3227-3341) feeds batches of tubes to the wave kernels on the
 card; then the per-contig-pair redundancy elimination
@@ -85,13 +87,16 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
     (default n=512, w=256, chunk=96, max_chunks=512, with an n=64 sibling
     for small and long batches and the W=512/2048 rescue lanes).
 
-    A two-genome comparison with no masks and no ``symmetric`` takes its
-    tubes from the device seed pipeline (ops/device_pipeline.py) on
-    ``device``; self comparison, masks, ``symmetric`` and ``engine="ref"``
-    seed on the host.  An input the device pipeline declines before
-    uploading anything (a cap of the JAX package, e.g. ``freq`` above 10)
-    is printed on stderr and seeded on the host; a cap exceeded on the
-    device raises.  ``stats["seed_pipeline"]`` says which ran, and
+    With no masks and no ``symmetric``, a two-genome comparison, and a self
+    comparison without ``t1``, take their tubes from the device seed
+    pipeline (ops/device_pipeline.py) on ``device``: the single-shot
+    route, or kmer-panel streaming where that declines (a genome past 96
+    Mi bases); masks, ``symmetric``, self comparison with ``t1`` and
+    ``engine="ref"`` seed on the host.  An input both device routes
+    decline before uploading anything (a cap of the JAX package, e.g.
+    ``freq`` above 10) is printed on stderr with the last reason and
+    seeded on the host; an error or a cap exceeded on the device
+    raises.  ``stats["seed_pipeline"]`` says which ran, and
     ``verbose`` prints it on stderr."""
     if engine not in ("ref", "torch"):
         raise ValueError(f"unknown wave engine '{engine}' "
@@ -127,14 +132,10 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
                  or (t2 is not None and not selfcmp and t2.maskb.any()))
 
     tubes = None
-    if engine == "torch" and not selfcmp and not has_masks \
-            and not symmetric:
-        devp.DECLINE = None
-        with prof.span("aligner.devpipe"):
-            dres = devp.device_tubes(
-                gdb1, gdb2, alens_by_rank, freq=params.freq,
-                chain_break=params.chain_break, chain_min=params.chain_min,
-                device=dev)
+    if engine == "torch" and not has_masks and not symmetric \
+            and not (selfcmp and t1 is not None):
+        dres = _device_seeds(gdb1, None if selfcmp else gdb2,
+                             alens_by_rank, params, dev)
         if dres is not None:
             tubes, nseeds, plsum = dres
             stats["nseeds"] = nseeds
@@ -215,6 +216,25 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
     # deterministic output order (SORT_MAP + la_merge heap)
     out.sort(key=lambda o: (o.aread, o.abpos, o.bread, o.bcomp))
     return out, stats
+
+
+def _device_seeds(gdb1, gdb2, alens_by_rank, params, dev):
+    """Tubes from the device seed pipeline: the single-shot route of a
+    pair (``device_tubes``) or of one genome (``gdb2`` None,
+    ``device_tubes_self``), then, if that declines, kmer-panel streaming.
+    None when both decline (``devp.DECLINE`` names the last reason); an
+    error on the device propagates."""
+    kw = dict(freq=params.freq, chain_break=params.chain_break,
+              chain_min=params.chain_min, device=dev)
+    devp.DECLINE = None
+    with prof.span("aligner.devpipe"):
+        if gdb2 is None:
+            dres = devp.device_tubes_self(gdb1, alens_by_rank, **kw)
+        else:
+            dres = devp.device_tubes(gdb1, gdb2, alens_by_rank, **kw)
+        if dres is None:
+            dres = devp.device_tubes_paneled(gdb1, gdb2, alens_by_rank, **kw)
+    return dres
 
 
 def _ref_align(tubes, perm1, perm2, lens1, lens2, spec, params, get_a,

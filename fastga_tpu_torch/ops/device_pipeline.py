@@ -1,27 +1,36 @@
 """Device seed pipeline: GIX tables, adaptamer merge and chain sweep on the
 card.
 
-Port of fastga_tpu/ops/device_pipeline.py, the subset ``device_tubes`` runs
-for a pair of genomes: per-genome syncmer entry tables built from the packed
-bases (one sort whose keys carry the payload), the adaptamer merge of the
-driver table (genome 1, forward entries) against genome 2's full table as
-ONE combined stream (merge_kernels.merge_sorted_streams) with insertion
-ranks, neighbour LCPs and the reference's freq-capped group windows from
-fused scans (scan_kernels.fused_scan), the ragged seed expansion, and the
-bucket-pair chain sweep (a sort of the seeds, a merge with their shifted
-copies, segmented scans for every per-chain aggregate).  Only the tube
-arrays come back to the host; the counts are the only other host syncs.
+Port of fastga_tpu/ops/device_pipeline.py, the unmasked routes without the
+-S flip pass.  ``device_tubes`` takes a pair of genomes: per-genome syncmer
+entry tables built from the packed bases (one sort whose keys carry the
+payload), the adaptamer merge of the driver table (genome 1, forward
+entries) against genome 2's full table as ONE combined stream
+(merge_kernels.merge_sorted_streams) with insertion ranks, neighbour LCPs
+and the reference's freq-capped group windows from fused scans
+(scan_kernels.fused_scan), the ragged seed expansion, and the bucket-pair
+chain sweep (a sort of the seeds, a merge with their shifted copies,
+segmented scans for every per-chain aggregate).  ``device_tubes_self``
+seeds one genome against itself within its own table (``self_seeds``).
+``device_tubes_paneled`` streams either past the single-shot bases: the
+tables of one 24-bit kmer-prefix range at a time, their seeds appended to
+one buffer on the device and chained once.  Only the tube arrays come back
+to the host; the counts are the only other host syncs.
 
 Semantics are those of the host path (ops/merge.py, ops/chain.py): the same
 TubeBatch, seed count and seed-length sum.  Caps are the JAX package's.  The
 checks that need nothing on the device (total bases, contig count, field
-widths, freq) decline with the JAX package's reasons: ``device_tubes``
-returns None and sets ``DECLINE``, and the caller seeds on the host.  A cap
-exceeded once the tables are on the device (GIX entries, seeds, tubes, a
-chain past its panels) raises RuntimeError: the work never moves back to
-the host.  The XLA sorts of the JAX pipeline are ``torch.sort`` here.  Self
-comparison, masked tables, the -S flip pass and the kmer-panel streaming
-are not ported (the aligner keeps the host seed path for them).
+widths, freq) decline with the JAX package's reasons: the function returns
+None and sets ``DECLINE``, and the caller tries the next route.  A cap
+exceeded once the tables are on the device raises RuntimeError (GIX
+entries, seeds, tubes, a chain past its panels, more than PANEL_MAX kmer
+panels): the work never moves back to the host.  Where the JAX package
+declines after upload, the port reruns on the device instead: a kmer panel
+past its own caps at twice the panels, a self run's seeds past 2 * E1 at
+their own bucket, the paneled global seed buffer grown to its seeds.  The
+XLA sorts of the JAX pipeline are ``torch.sort`` here.  Masked tables and
+the -S flip pass are not ported (the aligner keeps the host seed path for
+them).
 
 ``build_gix_device`` is the index build of ``gixmake`` and the command
 line: ``gix_arrays`` of one genome, of which only the finished entry rows
@@ -31,6 +40,7 @@ come back to the host as an io.gix.GixTable.
 from __future__ import annotations
 
 import sys
+import time
 
 import numpy as np
 import torch
@@ -468,13 +478,105 @@ def merge_seeds(T1, T2, ns_cap: int, freq: int = F):
     return pl, ac, ap, bc, bp, bo, nseeds, nalive
 
 
-def _merge_seeds_sum(T1, T2, nscap: int, freq: int = F):
-    """merge_seeds plus the seed-length sum over the valid prefix:
-    (plen, acont, apost, bcont, bpost, bcomp, nseeds, nalive, plsum)."""
-    pl, ac, ap, bc, bp, bo, ns, nalive = merge_seeds(T1, T2, nscap, freq)
+def _with_plsum(out, nscap: int):
+    """A seed function's outputs plus the seed-length sum over the valid
+    prefix: (plen, acont, apost, bcont, bpost, bcomp, nseeds, nalive,
+    plsum)."""
+    pl, ns = out[0], out[6]
     sidx = torch.arange(nscap, device=pl.device)
-    plsum = torch.where(sidx < ns, pl, 0).sum()
-    return pl, ac, ap, bc, bp, bo, ns, nalive, plsum
+    return tuple(out) + (torch.where(sidx < ns, pl, 0).sum(),)
+
+
+def _merge_seeds_sum(T1, T2, nscap: int, freq: int = F):
+    """merge_seeds plus the seed-length sum (``_with_plsum``)."""
+    return _with_plsum(merge_seeds(T1, T2, nscap, freq), nscap)
+
+
+def self_seeds(T1, ns_cap: int, freq: int = F):
+    """Self-comparison adaptamer seeds within one sorted table (port of
+    ops/merge.self_adaptamer_seeds, without masks): every entry of either
+    orientation pairs with the other members of its own lcp group, whose
+    window counts come from the table's own adjacent-lcp array.  The ragged
+    expansion runs over the table rows: an owner scatter, then one
+    fused_scan fills the owner row forward (a running max) and the owner's
+    first slot (a ``last`` fill).  Returns (plen, acont, apost, bcont,
+    bpost, bcomp, nseeds, nalive) as merge_seeds does."""
+    w0, _w1, _w2, c1, p1, o1, l1, n1, _vs = T1
+    dev = w0.device
+    E1 = w0.shape[0]
+    iota = torch.arange(E1, dtype=torch.int32, device=dev)
+    valid = iota < n1
+
+    # adj[i] = lcp(entry i-1, entry i) (0 at i = 0 and past n1)
+    adj = torch.where(valid & (iota > 0), l1.clamp(max=KMER), 0)
+    adj_next = torch.where(iota + 1 < E1, _roll(adj, -1), 0)
+    plen = torch.maximum(adj, adj_next)
+    alive0 = valid & (plen >= 12)
+
+    # group windows over the table's own lcps: wup[u-1][i] covers member
+    # i+u, wdn[u-1][i] member i-u; freq window values a side
+    wup, wdn = _window_mins(torch.where(iota > 0, l1, 0), n1, freq + 1)
+    upc = torch.zeros(E1, dtype=torch.int32, device=dev)
+    dnc = torch.zeros(E1, dtype=torch.int32, device=dev)
+    for u in range(freq):
+        upc = upc + (wup[u] >= plen).to(torch.int32)
+        dnc = dnc + (wdn[u] >= plen).to(torch.int32)
+    upc = torch.where(alive0, upc, 0)
+    dnc = torch.where(alive0, dnc, 0)
+    alive = alive0 & (1 + upc + dnc < freq)
+    cnt = torch.where(alive, upc + dnc, 0).to(torch.int64)
+
+    nalive = alive.sum()
+    cum_incl = torch.cumsum(cnt, 0)     # nseeds < 2^31
+    cum_excl = cum_incl - cnt
+    nseeds = cum_incl[E1 - 1]
+    # starts past the cap are dropped (scatter only the owners below it)
+    own = (cnt > 0) & (cum_excl < ns_cap)
+    row0 = torch.full((ns_cap,), -1, dtype=torch.int64,
+                      device=dev).scatter_reduce_(
+        0, cum_excl[own], iota[own].to(torch.int64), "amax",
+        include_self=True)
+    sidx = torch.arange(ns_cap, dtype=torch.int32, device=dev)
+    rowf, start_slot = fused_scan((row0, sidx),
+                                  (("max", None), ("last", 0)),
+                                  ((row0 >= 0).to(torch.int32),))
+    ec = rowf.clamp(0, E1 - 1).to(torch.int64)
+    v1 = ((plen.to(torch.int64) << 40) | (c1.to(torch.int64) << 28)
+          | p1.to(torch.int64))
+    g1 = v1[ec]
+    dncg = dnc[ec]
+    off = sidx - start_slot
+    # window rows skip x itself: offsets [0, dnc) lie below x, the rest
+    # one past it
+    y = (iota - dnc)[ec] + off + (off >= dncg).to(torch.int32)
+    yc = y.clamp(0, E1 - 1).to(torch.int64)
+    tpack = ((p1.to(torch.int64) << 19) | (c1.to(torch.int64) << 7)
+             | (o1.to(torch.int64) << 6))
+    tg = tpack[yc]
+
+    pl = ((g1 >> 40) & 63).to(torch.int32)
+    ac = ((g1 >> 28) & (MAX_CONT - 1)).to(torch.int32)
+    ap = (g1 & (MAX_POST - 1)).to(torch.int32)
+    bp = (tg >> 19).to(torch.int32)
+    bc = ((tg >> 7) & (MAX_CONT - 1)).to(torch.int32)
+    bo = o1[ec] ^ ((tg >> 6) & 1).to(torch.int32)
+    return pl, ac, ap, bc, bp, bo, nseeds, nalive
+
+
+def _self_seeds_sum(T1, nscap: int, freq: int = F):
+    """self_seeds plus the seed-length sum (``_with_plsum``)."""
+    return _with_plsum(self_seeds(T1, nscap, freq), nscap)
+
+
+def _self_seeds_fit(T1, nscap: int, freq: int = F):
+    """_self_seeds_sum at ``nscap`` slots; more seeds (a self run fans out
+    up to freq-2 seeds an entry) rerun the expansion at the seeds' own
+    bucket, where the JAX package declines.  Returns (outputs, slots)."""
+    out = _self_seeds_sum(T1, nscap, freq)
+    if int(out[6]) > nscap:
+        nscap = _pad_bucket(int(out[6]))
+        out = _self_seeds_sum(T1, nscap, freq)
+    return out, nscap
 
 
 # ---------------------------------------------------------------------------
@@ -789,6 +891,24 @@ def _dev_cache(gdb, N, device):
     return caches.setdefault(str(device), {})
 
 
+def _full_table(cache, gdb, lens, N, device):
+    """One genome's sorted two-orientation GIX table (cached per GDB),
+    trimmed to its entries' bucket; raises past the entry cap
+    max(4096, N)."""
+    T = cache.get(("tab", N))
+    if T is None:
+        bps, coff, clen, invp, nc, _ = _prep_genome(gdb, lens, device)
+        Ef = max(1 << 12, N)
+        Tf = gix_arrays(bps, coff, clen, invp, nc, ecap=Ef)
+        ne = int(Tf[7])
+        if ne > Ef:
+            _over_cap("GIX entry cap exceeded")
+        Et = min(_pad_bucket(ne), Ef)
+        T = tuple(x[:Et] for x in Tf[:7]) + (Tf[7], Tf[8][:Et])
+        cache[("tab", N)] = T
+    return T
+
+
 def _seedsort(pl, ac, ap, bcn, bp, bo, ns, Cpad):
     """Stable acont-major sort of the seed stream (payload packed into two
     value words), padded by one panel, and the per-contig panel
@@ -966,17 +1086,7 @@ def device_tubes(gdb1, gdb2, alens_by_rank, freq: int = 10,
             cache1[("drv", N1)] = T1
     E1 = T1[0].shape[0]
     with prof.span("devpipe.gix2", dev):
-        T2 = cache2.get(("tab", N2))
-        if T2 is None:
-            bps, coff, clen, invp, nc, _ = _prep_genome(gdb2, lens2, dev)
-            Ef = max(1 << 12, N2)
-            Tf = gix_arrays(bps, coff, clen, invp, nc, ecap=Ef)
-            ne = int(Tf[7])
-            if ne > Ef:
-                _over_cap("GIX entry cap exceeded")
-            Et = min(_pad_bucket(ne), Ef)
-            T2 = tuple(x[:Et] for x in Tf[:7]) + (Tf[7], Tf[8][:Et])
-            cache2[("tab", N2)] = T2
+        T2 = _full_table(cache2, gdb2, lens2, N2, dev)
     E2 = T2[0].shape[0]
     with prof.span("devpipe.merge", dev):
         caps = [NSCAP] + ([NSCAP_FULL] if NSCAP < NSCAP_FULL else [])
@@ -989,21 +1099,263 @@ def device_tubes(gdb1, gdb2, alens_by_rank, freq: int = 10,
                 break
     ne1, ne2 = int(T1[7]), int(T2[7])
     T1 = T2 = None
-    tcap_eff = _tcap_for(NSCAP, tcap)
-    with prof.span("devpipe.chain", dev):
+    return _tubes_from_seeds(mout, NSCAP, ACAP, tcap, chain_break, chain_min,
+                             amax, bmax, alens_by_rank, dev,
+                             lambda: ne1 > E1 or ne2 > E2)
+
+
+def _tubes_from_seeds(mout, nscap, acap, tcap, chain_break, chain_min, amax,
+                      bmax, alens_by_rank, device, extra_checks):
+    """The chain sweep over a seed function's outputs, then _finish_tubes.
+    More tubes than the tube cap rerun the chain stage at a larger cap (the
+    seeds stay on the device); more seeds or alive rows than their caps
+    raise before the sweep."""
+    if int(mout[6]) > nscap or int(mout[7]) > acap:
+        _over_cap("seed/tube caps exceeded")
+    tcap_eff = _tcap_for(nscap, tcap)
+    with prof.span("devpipe.chain", device):
         for _ in range(3):
             res, ns, nalive, plsum = _run_chain(
-                mout, NSCAP, tcap_eff, chain_break, chain_min, amax, bmax,
-                alens_by_rank, dev)
+                mout, nscap, tcap_eff, chain_break, chain_min, amax, bmax,
+                alens_by_rank, device)
             nt_host = int(res[9])
             if nt_host <= tcap_eff or tcap_eff >= (1 << 22):
                 break
-            # overflow backstop: the seeds stay on the device, so only the
-            # chain stage reruns
             tcap_eff = min(_pad_bucket(nt_host + (nt_host >> 2)), 1 << 22)
         return _finish_tubes(
-            res, ns, nalive, plsum, NSCAP, ACAP,
-            lambda: ne1 > E1 or ne2 > E2 or nt_host > tcap_eff)
+            res, ns, nalive, plsum, nscap, acap,
+            lambda: extra_checks() or nt_host > tcap_eff)
+
+
+def device_tubes_self(gdb1, alens_by_rank, freq: int = 10,
+                      chain_break: int = 2000, chain_min: int = 170,
+                      tcap: int = 1 << 15, device=None):
+    """Self-comparison TubeBatch of one genome from the device pipeline on
+    ``device`` (default: the card): its GIX table (gix_arrays, cached per
+    GDB), self_seeds and the chain sweep.  (tubes, nseeds, plsum), or None
+    with DECLINE set before any upload; a cap exceeded on the device
+    raises RuntimeError.
+
+    The expansion first takes the JAX package's seed cap, 2 * E1
+    (``_self_seeds_fit``)."""
+    dev = torch.device("cuda" if device is None else device)
+    lens1 = gdb1.contig_lengths()
+    if int(lens1.sum()) == 0 or int(lens1.sum()) > _MAX_DEV_BASES:
+        return _decline("genome exceeds single-shot device bases")
+    if len(lens1) >= MAX_CONT:
+        return _decline(f">= {MAX_CONT} contigs")
+    if freq > MAX_FREQ:
+        return _decline(f"-f {freq} > device merge cap {MAX_FREQ}")
+    amax = int(lens1.max())
+    if 3 * amax >= (1 << 30) or amax >= MAX_POST:
+        return _decline("contig length exceeds device field width")
+
+    N1 = _pad_bucket(int(lens1.sum()))
+    E1 = max(1 << 12, N1)
+    NSCAP = max(E1 * 2, 1 << 13)
+    ACAP = max(E1, 1 << 12)
+    with prof.span("devpipe.gix1", dev):
+        T1 = _full_table(_dev_cache(gdb1, N1, dev), gdb1, lens1, N1, dev)
+    with prof.span("devpipe.merge", dev):
+        mout, NSCAP = _self_seeds_fit(T1, NSCAP, freq)
+    ne1 = int(T1[7])
+    T1 = None
+    return _tubes_from_seeds(mout, NSCAP, ACAP, tcap, chain_break, chain_min,
+                             amax, amax, alens_by_rank, dev,
+                             lambda: ne1 > E1)
+
+
+# ---------------------------------------------------------------------------
+# Kmer-panel streaming: genomes past the single-shot bases
+# ---------------------------------------------------------------------------
+#
+# Adaptamer groups need a shared prefix of at least 12 bases, so no group
+# spans two ranges of the 24-bit (12-base) kmer prefix: each panel's tables
+# hold the entries of one prefix range, merge (pairs) or self-merge (self)
+# on their own, and append their seeds to one global buffer on the device,
+# which the chain sweep takes once.  The result is the single-shot
+# pipeline's for any panel count.
+
+PANEL_BLOCK = 1 << 22        # positions a candidate block covers
+PANEL_MAX = 256              # most panels a run doubles up to
+_HALO_LO, _HALO_HI = 32, 64  # bases a candidate reads before / after it
+
+
+def _panel_scan(prep, total, cap, P, panel):
+    """The sorted table of one genome's entries whose 24-bit kmer prefix
+    lies in ``panel``'s range: candidates block by block (PANEL_BLOCK
+    positions, the last one clipped to the genome's end), appended in
+    order at a running offset, then one sort of the panel buffer on the
+    composite entry key.  Returns ((w0, w1, w2, cont, post, comp, lcp, n,
+    valid), over) with ``cap`` rows; ``over`` counts the entries past the
+    cap."""
+    bps, coff, clen, invp, nc, _N = prep
+    dev = bps.device
+    lo = panel * (NPREFIX // P)
+    hi = lo + NPREFIX // P
+    cstart = coff[:nc].to(torch.int64)
+    ilast = 4 * bps.shape[0] - 1
+    Cpad = coff.shape[0]
+    buf_a = torch.full((cap + 1,), I64MAX, dtype=torch.int64, device=dev)
+    buf_b = torch.full((cap + 1,), I64MAX, dtype=torch.int64, device=dev)
+    off = torch.zeros((), dtype=torch.int64, device=dev)
+    for i0 in range(0, total, PANEL_BLOCK):
+        i = torch.arange(i0 - _HALO_LO,
+                         min(i0 + PANEL_BLOCK, total) + _HALO_HI,
+                         dtype=torch.int64, device=dev)
+        ic = i.clamp(0, ilast)
+        bases = ((bps[ic >> 2].to(torch.int32) >> ((ic & 3) << 1)
+                  .to(torch.int32)) & 3)
+        co = torch.searchsorted(cstart, ic, right=True) - 1
+        co = torch.where(ic < total, co, nc + 1)
+        coc = co.clamp(0, Cpad - 1)
+        inb = (co < nc) & (i >= i0) & (i < i0 + PANEL_BLOCK)
+        ok, w0, w1, w2, cc, pp, oo = entry_candidates(
+            bases, (i - coff[coc]).to(torch.int32), clen[coc], invp[coc],
+            inb)
+        pre24 = _u32_64(w0) >> 8
+        ok = ok & (pre24 >= lo) & (pre24 < hi)
+        ka, kb = pack_entry_keys(ok, w0, w1, w2, cc, pp, oo)
+        # order-keeping compaction: each valid row to its rank past the
+        # offset; rows past the cap go to the spare last slot
+        rank = torch.cumsum(ok, 0) - 1 + off
+        dst = torch.where(ok & (rank < cap), rank, cap)
+        buf_a.scatter_(0, dst, ka)
+        buf_b.scatter_(0, dst, kb)
+        off = off + ok.sum()
+    o = lexsort2(buf_a[:cap], buf_b[:cap])
+    w0s, w1s, w2s, cs, ps, os_ = unpack_entry_keys(buf_a[o], buf_b[o])
+    n = off.clamp(max=cap)
+    vs = (torch.arange(cap, device=dev) < n).to(torch.int32)
+    return ((w0s, w1s, w2s, cs, ps, os_, adjacent_lcp(w0s, w1s, w2s), n,
+             vs), (off - cap).clamp(min=0))
+
+
+def _panel_caps(N1, N2, P, selfish):
+    """A panel's caps at ``P`` panels: the two genomes' entry buffers
+    (about 1.1 entries a base over P, with 2x slack), its seeds (a self
+    run's fan-out is up to freq-2 seeds an entry) and its alive rows."""
+    cap1 = _pad_bucket(max((2 * N1) // P, 1 << 14))
+    cap2 = _pad_bucket(max((2 * N2) // P, 1 << 14))
+    return (cap1, cap2, max(2 * cap1 if selfish else cap1, 1 << 13),
+            max(cap1 if selfish else cap1 // 2, 1 << 12))
+
+
+def _append_seeds(g1, g2, goff, out, ns):
+    """Pack one panel's first ``ns`` seeds into the global buffers at row
+    ``goff``; returns (g1, g2, new offset).  Buffers too short for them
+    grow to the seeds' bucket; seeds past CHAIN_PANEL_MAX, more than the
+    chain sweep takes, raise."""
+    pl, ac, ap, bcn, bp, bo = (x[:ns].to(torch.int64) for x in out[:6])
+    if goff + ns > g1.shape[0]:
+        if goff + ns > CHAIN_PANEL_MAX:
+            _over_cap(f"paneled seeds exceed the chain sweep's cap "
+                      f"{CHAIN_PANEL_MAX}")
+        grow = min(_pad_bucket(goff + ns), CHAIN_PANEL_MAX) - g1.shape[0]
+        g1, g2 = (torch.cat([g, torch.zeros(grow, dtype=torch.int64,
+                                            device=g.device)])
+                  for g in (g1, g2))
+    g1[goff:goff + ns] = (pl << 40) | (ac << 28) | ap
+    g2[goff:goff + ns] = (bcn << 29) | (bp << 1) | bo
+    return g1, g2, goff + ns
+
+
+def _unpack_seeds(g1, g2):
+    """The global buffers -> (plen, acont, apost, bcont, bpost, bcomp)."""
+    return ((g1 >> 40).to(torch.int32),
+            ((g1 >> 28) & (MAX_CONT - 1)).to(torch.int32),
+            (g1 & (MAX_POST - 1)).to(torch.int32),
+            ((g2 >> 29) & (MAX_CONT - 1)).to(torch.int32),
+            ((g2 >> 1) & (MAX_POST - 1)).to(torch.int32),
+            (g2 & 1).to(torch.int32))
+
+
+def device_tubes_paneled(gdb1, gdb2, alens_by_rank, freq: int = 10,
+                         chain_break: int = 2000, chain_min: int = 170,
+                         tcap: int = 1 << 17, panels: int = 0,
+                         verbose: bool = False, device=None):
+    """TubeBatch of a genome pair, or of one genome against itself
+    (``gdb2`` None or ``gdb1``), by kmer-panel streaming on ``device``
+    (default: the card), for genomes past the single-shot bases.  Equal to
+    device_tubes / device_tubes_self and the host path.
+
+    ``panels`` 0 takes max(2, 2 * the larger padded genome / 2^24) rounded
+    up to a power of two.  A panel past its own caps (its entry buffer,
+    its seed cap, its alive cap) reruns the whole run at twice the panels,
+    up to PANEL_MAX; past that it raises RuntimeError.  The global seed
+    buffer starts at the JAX package's GCAP, twice genome 1's bases, and
+    grows to the seeds' bucket where a self run needs more (the JAX package
+    declines there); seeds past CHAIN_PANEL_MAX raise.  ``verbose`` prints
+    a line a panel on stderr.  (tubes, nseeds, plsum), or None with
+    DECLINE set before any upload."""
+    dev = torch.device("cuda" if device is None else device)
+    selfish = gdb2 is None or gdb2 is gdb1
+    if selfish:
+        gdb2 = gdb1
+    lens1 = gdb1.contig_lengths()
+    lens2 = lens1 if selfish else gdb2.contig_lengths()
+    if len(lens1) == 0 or len(lens2) == 0:
+        return _decline("empty genome")
+    if len(lens1) >= MAX_CONT or len(lens2) >= MAX_CONT:
+        return _decline(f">= {MAX_CONT} contigs")
+    amax, bmax = int(lens1.max()), int(lens2.max())
+    if amax + 2 * bmax >= (1 << 30) or max(amax, bmax) >= MAX_POST:
+        return _decline("contig length exceeds device field width")
+    if freq > MAX_FREQ:
+        return _decline(f"-f {freq} > device merge cap {MAX_FREQ}")
+    tot1, tot2 = int(lens1.sum()), int(lens2.sum())
+
+    with prof.span("devpipe.prep", dev):
+        prep1 = _prep_genome(gdb1, lens1, dev)
+        prep2 = prep1 if selfish else _prep_genome(gdb2, lens2, dev)
+    N1, N2 = prep1[5], prep2[5]
+    if panels <= 0:
+        # a panel's merge stream stays near 16 Mi rows
+        panels = max(2, -(-(2 * max(N1, N2)) // (1 << 24)))
+        panels = 1 << (panels - 1).bit_length()
+    GCAP = _pad_bucket(max(tot1, 1) * 2)
+    g1 = torch.zeros(GCAP, dtype=torch.int64, device=dev)
+    g2 = torch.zeros(GCAP, dtype=torch.int64, device=dev)
+    P = panels
+    while True:
+        cap1, cap2, NSCAP_P, acap_p = _panel_caps(N1, N2, P, selfish)
+        goff = nseeds = plsum = over = 0
+        for p in range(P):
+            t0 = time.perf_counter()
+            with prof.span("devpipe.panel", dev):
+                T1, ova = _panel_scan(prep1, tot1, cap1, P, p)
+                if selfish:
+                    ovb = torch.zeros_like(ova)
+                    out = _self_seeds_sum(T1, NSCAP_P, freq)
+                else:
+                    T2, ovb = _panel_scan(prep2, tot2, cap2, P, p)
+                    out = _merge_seeds_sum(T1, T2, NSCAP_P, freq)
+                    T2 = None
+                T1 = None
+                ns, nalive, pls, oa, ob = (int(x) for x in torch.stack(
+                    [out[6], out[7], out[8], ova, ovb]).tolist())
+                over = oa + ob + (ns > NSCAP_P) + (nalive > acap_p)
+                if verbose:
+                    sys.stderr.write(
+                        f"devpipe panel {p + 1}/{P}: ns={ns} over={over} "
+                        f"{time.perf_counter() - t0:.2f}s\n")
+                if over:
+                    break
+                g1, g2, goff = _append_seeds(g1, g2, goff, out, ns)
+            nseeds += ns
+            plsum += pls
+            out = None
+        if not over:
+            break
+        if P >= PANEL_MAX:
+            _over_cap(f"a kmer panel's caps exceeded at {P} panels")
+        P *= 2
+    GCAP = g1.shape[0]
+    nb = min(_pad_bucket(max(goff, 1 << 13)), GCAP)
+    seeds = _unpack_seeds(g1[:nb], g2[:nb]) + (goff, 0, plsum)
+    g1 = g2 = None
+    return _tubes_from_seeds(seeds, GCAP, 0, tcap, chain_break, chain_min,
+                             amax, bmax, alens_by_rank, dev, lambda: False)
 
 
 # ---------------------------------------------------------------------------

@@ -174,8 +174,8 @@ def test_aln_file_matches_jax_cli(pair, same_date, monkeypatch):
 @pytest.mark.parametrize("case", ["M", "mask", "S", "T1", "self", "f20",
                                   "lics"])
 def test_flags_match_jax_cli(pair, self_genome, case, stats_seen, capsys):
-    """The flags that seed on the host (-M, #mask, -S, one source, -f
-    past the device cap) and those that do not (-T1, -l/-i/-c/-s)."""
+    """The flags that seed on the host (-M, #mask, -S, -f past the device
+    cap) and those that do not (-T1, -l/-i/-c/-s, one source)."""
     A, B = _fa(pair)
     args = {"M": ["-M", A, B], "mask": [A, f"#{pair}/Am.1ano", B],
             "S": ["-S", A, B], "T1": ["-T1", A, B],
@@ -186,7 +186,7 @@ def test_flags_match_jax_cli(pair, self_genome, case, stats_seen, capsys):
     err = capsys.readouterr().err
     assert got == jax_ref(args)
     assert got.count("\n") >= 2
-    assert seeds == ("device" if case in ("T1", "lics") else "host")
+    assert seeds == ("device" if case in ("T1", "lics", "self") else "host")
     if case == "f20":
         assert "device seed pipeline declined (-f 20" in err
         assert stats_seen[-1]["seed_decline"].startswith("-f 20")

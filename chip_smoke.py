@@ -8,7 +8,10 @@
 
 Phases (every one runs; any failure exits non-zero before the summary):
 1. environment: the card (nvidia-smi name and power limit), torch and CUDA
-   versions, and the nvcc build of the five kernels (csrc/*.cu);
+   versions, and the nvcc build of the five kernels (csrc/*.cu), beside
+   the host seed path's references of phases 10 and 11 in worker
+   processes, which end before phase 2, so that no phase is timed beside
+   them;
 2. each wave kernel against its plain PyTorch version on the card, at the
    main path's widths: wave_chunk at n=512/W=256/G=384 in both directions,
    again on an indel-rich batch whose wide bands overflow W=256, at the
@@ -64,11 +67,15 @@ Phases (every one runs; any failure exits non-zero before the summary):
    -m fastga_tpu_torch.cli.fastga` subprocess on a small mutated pair
    prints the in-process PAF; `gixmake` (the device GIX build) on the
    uniform FASTAs writes the host build's .gix files byte for byte, and
-   `fastga A.gix B.gix` gives the uniform records;
+   `fastga A.gix B.gix` gives the uniform records; `fastga -v -M` on the
+   repeat-rich FASTAs with the repeats in lower case and `fastga -v -S` on
+   the upper-case ones seed on the card (every kernel launched, a PAF line
+   a record) with the wall time split;
 10. the self and kmer-panel seed routes: align_genomes(A, A) on the
    repeat-rich A genome takes device_tubes_self (its expansion past the
    JAX package's seed cap, its chain in A-contig panels) with every kernel
-   launched and the host seed path's TubeBatch, seeds and seed-length sum;
+   launched and the host seed path's TubeBatch, seeds and seed-length sum
+   (computed in phase 1's workers);
    device_tubes_paneled(panels=4) on the uniform and repeat-rich pairs and
    on A as self equals phases 4-5 and the self run; the uniform pair at
    2,560 x 50 kb (128 Mbp a side, past _MAX_DEV_BASES) goes through
@@ -78,7 +85,23 @@ Phases (every one runs; any failure exits non-zero before the summary):
    fit on the card); each route's peak device memory; then merge_path
    and fused_scan against their plain versions, bit for bit, on the
    largest input of each column count and scan spec these routes gave
-   them, with kernel ms, plain ms and the byte bound.
+   them, with kernel ms, plain ms and the byte bound;
+11. masked tables and -S: the repeat-rich pair with its repeat intervals
+   as masks (the shape of a RepeatMasker annotation), through
+   device_tubes_tables with hard masks (the main path's 22,902,602 seeds
+   and 99,999 tubes: a mask byte is at most KMER, below KMER + 1), with
+   -M, with -S -M and as a masked self run, and through
+   device_tubes(symmetric=True): each TubeBatch, seed count and
+   seed-length sum equal to the host seed path's (build_gix with the
+   masks, the host seed functions, chain_tubes: computed in phase 1's
+   workers), each seed expansion's total before compaction against its
+   slots, its kept seeds and alive driving rows; align_genomes with -M
+   and with -S on
+   the card (the route taken, the host path's seeds and tubes, every
+   kernel launched); then merge_path and fused_scan against their plain
+   versions, bit for bit, on the largest input of each column count and
+   scan spec these routes gave them, with kernel ms, plain ms and the
+   byte bound.
 
 The second-to-last line is the per-kernel JSON summary, the last line the
 device summary.
@@ -745,17 +768,22 @@ def compare_trees(parent):
 
 class SeedCapture:
     """Wraps the device pipeline's kernel entry points and its seed routes
-    (device_tubes, device_tubes_self, device_tubes_paneled) for one run, to
-    keep the inputs the run gave the kernels (per merge column count and
-    per scan spec, the largest call), each route called with whether it
-    declined and its peak device memory (``max_memory_allocated`` above
-    the allocation at its start), the TubeBatch and arguments of the route
-    that returned one, the panel counts the paneled route ran at and the
-    chain sweep's A-contig panels.  The wrapped calls launch the kernels
-    as before.  ``inputs=False`` keeps no kernel inputs (they would stay
-    alive past their use and raise the routes' peak memory)."""
+    (device_tubes, device_tubes_self, device_tubes_paneled,
+    device_tubes_tables) for one run, to keep the inputs the run gave the
+    kernels (per merge column count and per scan spec, the largest call),
+    each route called with whether it declined and its peak device memory
+    (``max_memory_allocated`` above the allocation at its start), the
+    TubeBatch and arguments of the route that returned one, the panel
+    counts the paneled route ran at, the chain sweep's A-contig panels,
+    and each seed pass (``fits``: its expansion's total before a masked or
+    -S flip pass drops any seed, the slots ``_expansion_slots`` gave it,
+    its seeds and its alive driving rows).  The wrapped calls launch the
+    kernels as before.
+    ``inputs=False`` keeps no kernel inputs (they would stay alive past
+    their use and raise the routes' peak memory)."""
 
-    ROUTES = ("device_tubes", "device_tubes_self", "device_tubes_paneled")
+    ROUTES = ("device_tubes", "device_tubes_self", "device_tubes_paneled",
+              "device_tubes_tables")
 
     def __init__(self, inputs=True):
         self.inputs = inputs
@@ -768,13 +796,16 @@ class SeedCapture:
         self.mem = {}
         self.panels = []
         self.chain_panels = 0
+        self.fits = []
+        self.expansions = []
 
     def __enter__(self):
         import torch
 
         from fastga_tpu_torch.ops import device_pipeline as tp
         names = (("merge_sorted_streams", "fused_scan", "_panel_caps",
-                  "_chain_panel") + self.ROUTES)
+                  "_chain_panel", "_expansion_slots", "_merge_seeds_sum",
+                  "_self_seeds_sum") + self.ROUTES)
         self._orig = {n: getattr(tp, n) for n in names}
         orig = self._orig
 
@@ -803,6 +834,21 @@ class SeedCapture:
             self.chain_panels += 1
             return orig["_chain_panel"](*a)
 
+        def slots_w(total, ns_cap):
+            slots = orig["_expansion_slots"](total, ns_cap)
+            self.expansions.append((int(total), slots))
+            return slots
+
+        def pass_w(name):
+            def w(*a, **k):
+                out = orig[name](*a, **k)
+                total, slots = self.expansions[-1]
+                self.fits.append(dict(total=total, slots=slots,
+                                      nseeds=int(out[6]),
+                                      nalive=int(out[7])))
+                return out
+            return w
+
         def route_w(name):
             def w(*a, **k):
                 torch.cuda.synchronize()
@@ -819,6 +865,9 @@ class SeedCapture:
 
         tp.merge_sorted_streams, tp.fused_scan = merge_w, scan_w
         tp._panel_caps, tp._chain_panel = caps_w, chain_w
+        tp._expansion_slots = slots_w
+        for n in ("_merge_seeds_sum", "_self_seeds_sum"):
+            setattr(tp, n, pass_w(n))
         for n in self.ROUTES:
             setattr(tp, n, route_w(n))
         return self
@@ -1143,9 +1192,10 @@ PHASES = {
 }
 
 
-def run_main_path(name, g1, g2):
-    """align_genomes on the card with the spans on; prints the records,
-    the phase split (fastga_tpu bench.py's span names) and the stats."""
+def run_main_path(name, g1, g2, **kw):
+    """align_genomes on the card (``kw``: its tables and options) with the
+    spans on; prints the records, the phase split (fastga_tpu bench.py's
+    span names) and the stats."""
     import torch
 
     from fastga_tpu_torch.models import aligner
@@ -1154,7 +1204,7 @@ def run_main_path(name, g1, g2):
     prof.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ovls, stats = aligner.align_genomes(g1, g2, device="cuda")
+    ovls, stats = aligner.align_genomes(g1, g2, device="cuda", **kw)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     rep = prof.report()
@@ -1273,18 +1323,28 @@ def phase_uniform():
     return launches, cap, main_run
 
 
-def phase_repeatrich(mbp):
-    from fastga_tpu_torch.ops import cuda_build
+def repeat_rich(mbp):
+    """fastga_tpu bench.py's main input: synth.repeat_rich_pair at ``mbp``
+    Mbp a side (seed 0xBE7C4); the two GDBs and their soft-masked repeat
+    intervals (io.gdb.MaskIval lists, the shape of a RepeatMasker
+    annotation)."""
     from fastga_tpu_torch.utils import synth
     rng = np.random.default_rng(0xBE7C4)
-    t0 = time.perf_counter()
-    pair, _ = synth.repeat_rich_pair(
+    pair, masks = synth.repeat_rich_pair(
         rng, int(mbp * 1e6), ncontig=max(8, int(mbp)), repeat_frac=0.55,
         copies_per_subfam=12)
-    g1, _ = synth.to_gdb("a", pair["A"])
-    g2, _ = synth.to_gdb("b", pair["B"])
-    log(f"repeatrich: {mbp:g} Mbp/side x{len(pair['A'])} contigs "
-        f"(gen {time.perf_counter() - t0:.1f} s)")
+    g1, iv1 = synth.to_gdb("a", pair["A"], masks["A"])
+    g2, iv2 = synth.to_gdb("b", pair["B"], masks["B"])
+    return g1, g2, iv1, iv2
+
+
+def phase_repeatrich(mbp):
+    from fastga_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    g1, g2, iv1, iv2 = repeat_rich(mbp)
+    log(f"repeatrich: {mbp:g} Mbp/side x{g1.ncontig} contigs, "
+        f"{len(iv1):,} / {len(iv2):,} repeat intervals (gen "
+        f"{time.perf_counter() - t0:.1f} s)")
     with SeedCapture() as cap:
         cuda_build.reset_launches()
         ovls, stats, wall = run_main_path("repeatrich", g1, g2)
@@ -1309,7 +1369,7 @@ def phase_repeatrich(mbp):
     check_seeds("repeatrich", stats, REPEAT_RICH_SEEDS)
     check_routes("repeatrich", cap, [("device_tubes", True)])
     profile_kernels("repeatrich", g1, g2)
-    return launches, cap, main_run, g1
+    return launches, cap, main_run, (g1, g2, iv1, iv2)
 
 
 def phase_rescue():
@@ -1431,12 +1491,22 @@ def records_digest(ovls):
     return h.hexdigest()
 
 
-def write_fasta(path, names, seqs, width=80):
-    """Upper-case FASTA of base-code arrays, ``width`` bases a line."""
+def write_fasta(path, names, seqs, width=80, lower=None):
+    """Upper-case FASTA of base-code arrays, ``width`` bases a line;
+    ``lower``: io.gdb.MaskIval intervals (by sequence index) written in
+    lower case, FASTA's soft mask."""
     from fastga_tpu_torch.utils import dna
+    soft = {}
+    for m in lower or ():
+        soft.setdefault(m.contig, []).append((m.beg, m.end))
     with open(path, "wb") as f:
-        for name, codes in zip(names, seqs):
+        for i, (name, codes) in enumerate(zip(names, seqs)):
             body = np.frombuffer(dna.to_ascii(codes, True), np.uint8)
+            if i in soft:
+                low = np.zeros(len(body), bool)
+                for b, e in soft[i]:
+                    low[b:e] = True
+                body = np.where(low, body | 0x20, body).astype(np.uint8)
             full = len(body) // width
             f.write(b">%s\n" % name.encode())
             f.write(np.concatenate(
@@ -1710,7 +1780,49 @@ def cli_gixmake(run, d):
         f"B.gix gives the uniform records")
 
 
-def phase_cli(run_u, run_rr):
+def cli_masks_sym(run, gs, d):
+    """fastga -v -M on the repeat-rich FASTAs with the repeats in lower
+    case, and fastga -v -S on the upper-case ones (PAF): seeds on the card,
+    the wall time split."""
+    from fastga_tpu_torch.models import aligner
+    from fastga_tpu_torch.ops import cuda_build
+    g1, g2, iv1, iv2 = gs
+    lc = []
+    for tag, g, iv in (("A", g1, iv1), ("B", g2, iv2)):
+        lc.append(os.path.join(d, f"{run['name']}_{tag}lc.fa"))
+        write_fasta(lc[-1], [sc.header for sc in g.scaffolds],
+                    [g.get_contig(i) for i in range(g.ncontig)], lower=iv)
+    align, seen = aligner.align_genomes, []
+    aligner.align_genomes = lambda *a, **k: seen.append(align(*a, **k)) \
+        or seen[-1]
+    try:
+        for flag, files in (("-M", lc), ("-S", run["fasta"])):
+            paf = os.path.join(d, f"{run['name']}{flag}.paf")
+            cuda_build.reset_launches()
+            _, err, wall = run_cli("fastga", ["-v", flag] + files,
+                                   out_path=paf)
+            launches = dict(cuda_build.LAUNCHES)
+            st = seen[-1][1]
+            with open(paf) as f:
+                nlines = sum(1 for _ in f)
+            if st["seed_pipeline"] != "device" or nlines != st["nlive"] \
+                    or any(launches.get(k, 0) <= 0 for k in KERNELS):
+                raise SystemExit(f"cli[{run['name']}] fastga {flag}: seeds "
+                                 f"{st['seed_pipeline']} "
+                                 f"({st.get('seed_decline', '')}), "
+                                 f"{nlines} PAF lines for {st['nlive']} "
+                                 f"records, launches {launches}")
+            p, a, wr = cli_split(err, wall)
+            log(f"cli[{run['name']}] fastga -v {flag} (PAF): device seeds, "
+                f"{st['nseeds']:,} seeds, {st['nhits']:,} tubes, "
+                f"{nlines:,} records; wall {wall:.3f} s = FASTA parse, GDB "
+                f"and GIX build {p:.3f} + alignment {a:.3f} + writing "
+                f"{wr:.3f}; launches {json.dumps(launches)}")
+    finally:
+        aligner.align_genomes = align
+
+
+def phase_cli(run_u, run_rr, gs_rr):
     """The command line on the card (phase 9)."""
     t0 = time.perf_counter()
     d = os.path.join(CLI_DIR, "run")
@@ -1719,6 +1831,7 @@ def phase_cli(run_u, run_rr):
     cli_goldens(d)
     cli_scenario(run_u, d)
     cli_scenario(run_rr, d)
+    cli_masks_sym(run_rr, gs_rr, d)
     cli_python_m(d)
     cli_gixmake(run_u, d)
     log(f"cli: phase {time.perf_counter() - t0:.1f} s")
@@ -1752,38 +1865,31 @@ def check_launches(name, launches):
     log(f"  launches[{name}]: {json.dumps(launches)}")
 
 
-def check_host_self(g, got):
+def check_host_self(got, ref):
     """The self run's TubeBatch, seed count and seed-length sum against the
     host seed path's on the same genome (build_gix, self_adaptamer_seeds,
-    chain_tubes), each step timed."""
-    from fastga_tpu_torch.io.gix import build_gix
-    from fastga_tpu_torch.ops import chain as chainm, merge as mergem
-    tubes, ns, pl = got
-    t0 = time.perf_counter()
-    t = build_gix(g)
-    t1 = time.perf_counter()
-    seeds = mergem.self_adaptamer_seeds(t, freq=10)
-    t2 = time.perf_counter()
-    amax = int(g.contig_lengths().max())
-    host = chainm.chain_tubes(seeds, amax, amax, alens_of(g))
-    t3 = time.perf_counter()
-    hpl = int(seeds.plen.astype(np.int64).sum())
+    chain_tubes: HOST_REFS["self"], each step timed in its worker
+    process)."""
+    out, t_gix, _ = ref
+    host, ns, hpl, t_seed, t_chain = out["self"]
+    tubes, dns, pl = got
     bad = tube_diff(host, tubes)
-    if bad or (ns, pl) != (seeds.n, hpl):
-        raise SystemExit(f"self: device TubeBatch ({tubes.n} tubes, {ns} "
+    if bad or (dns, pl) != (ns, hpl):
+        raise SystemExit(f"self: device TubeBatch ({tubes.n} tubes, {dns} "
                          f"seeds, length sum {pl}) differs from the host "
-                         f"path's ({host.n}, {seeds.n}, {hpl}): {bad}")
+                         f"path's ({host.n}, {ns}, {hpl}): {bad}")
     log(f"self: device TubeBatch, seeds and seed-length sum equal to the "
-        f"host path's ({host.n:,} tubes, {seeds.n:,} seeds, length sum "
-        f"{hpl:,}); host seeding {t3 - t0:.3f} s = build_gix "
-        f"{t1 - t0:.3f} + self_adaptamer_seeds {t2 - t1:.3f} + chain_tubes "
-        f"{t3 - t2:.3f}")
+        f"host path's ({host.n:,} tubes, {ns:,} seeds, length sum "
+        f"{hpl:,}); host seeding {t_gix + t_seed + t_chain:.3f} s = "
+        f"build_gix {t_gix:.3f} + self_adaptamer_seeds {t_seed:.3f} + "
+        f"chain_tubes {t_chain:.3f} (in a worker process)")
 
 
-def run_self(g):
+def run_self(g, host_ref):
     """align_genomes(g, g) on the card: device_tubes_self (with the chain
     in A-contig panels past CHAIN_DEV_CAP seeds), every kernel launched,
-    the host path's TubeBatch."""
+    the host path's TubeBatch (``host_ref``: HOST_REFS["self"]'s
+    result)."""
     from fastga_tpu_torch.ops import cuda_build
     with SeedCapture() as cap:
         cuda_build.reset_launches()
@@ -1795,16 +1901,15 @@ def run_self(g):
     check_launches("self", launches)
     from fastga_tpu_torch.ops import device_pipeline as tp
     cap2 = 2 * max(1 << 12, tp._pad_bucket(int(g.contig_lengths().sum())))
-    rerun = tp._pad_bucket(cap.tubes[1])
+    fit_lines("self", cap)
     log(f"self: the JAX package's seed cap 2 * E1 = {cap2:,}"
-        + (f": exceeded, the expansion reran at {rerun:,} slots"
-           if cap.tubes[1] > cap2 else ""))
+        + (": exceeded" if cap.tubes[1] > cap2 else ""))
     log(f"self: device_tubes_self, {cap.tubes[1]:,} seeds, "
         f"{cap.tubes[0].n:,} tubes, chain in {cap.chain_panels} A-contig "
         f"panels")
     route_alone("self (its GIX table cached)", "device_tubes_self",
                 *cap.tubes_args)
-    check_host_self(g, cap.tubes)
+    check_host_self(cap.tubes, host_ref)
     return cap, launches
 
 
@@ -1959,12 +2064,13 @@ def drop_device_tables(gdbs):
     torch.cuda.empty_cache()
 
 
-def phase_seed_routes(g_rr, rr_ref, u_ref):
+def phase_seed_routes(g_rr, rr_ref, u_ref, host_self):
     """Phase 10: the self and kmer-panel seed routes on the card, then
     merge_path and fused_scan against their plain versions on the largest
     inputs of each column count and spec these routes gave them.  The 128
     Mbp pair runs first, with the earlier phases' cached device tables
-    freed: its single-shot reference needs most of the card."""
+    freed: its single-shot reference needs most of the card.
+    ``host_self``: the self run's host reference."""
     t0 = time.perf_counter()
     merge, scan = {}, {}
     drop_device_tables([g_rr] + list(rr_ref[1][0][:2])
@@ -1972,7 +2078,7 @@ def phase_seed_routes(g_rr, rr_ref, u_ref):
     cap_b, launches_b = run_big()
     cap_b.fold_into(merge, scan)
     del cap_b
-    cap_s, launches_s = run_self(g_rr)
+    cap_s, launches_s = run_self(g_rr, host_self)
     cap_s.fold_into(merge, scan)
     self_ref = (cap_s.tubes, cap_s.tubes_args)
     del cap_s
@@ -2013,6 +2119,200 @@ def seed_kernel_rows(merge, scan, tag):
     return rows
 
 
+# -- phase 11: masked tables and -S ------------------------------------------
+
+# the host seed path's variants of phases 10 and 11 on the repeat-rich
+# pair, one worker process each: (name, soft mask, symmetric; None for
+# self), on masked tables or not
+HOST_REFS = {
+    "self": ([("self", False, None)], False),
+    "masked": ([("hard mask", False, False), ("-M", True, False)], True),
+    "symmetric": ([("-S", False, True)], False),
+    "symmetric masked": ([("-S -M", True, True)], True),
+    "self masked": ([("self -M", True, None)], True),
+}
+
+
+def host_reference(what, mbp):
+    """One HOST_REFS entry on the repeat-rich pair, in a worker process:
+    build_gix (with the repeat intervals as masks where masked), the host
+    seed functions and chain_tubes, each timed.  Returns ({variant:
+    (TubeBatch, seeds, length sum, seed s, chain s)}, build_gix s, and the
+    masked tables of "masked", which the card's runs take)."""
+    from fastga_tpu_torch.io.gix import build_gix
+    from fastga_tpu_torch.ops import chain as chainm, merge as mergem
+    variants, masked = HOST_REFS[what]
+    g1, g2, iv1, iv2 = repeat_rich(mbp)
+    t0 = time.perf_counter()
+    t1 = build_gix(g1, masks=iv1 if masked else None)
+    t2 = (None if what.startswith("self")
+          else build_gix(g2, masks=iv2 if masked else None))
+    t_gix = time.perf_counter() - t0
+    amax = int(g1.contig_lengths().max())
+    bmax = int(g2.contig_lengths().max())
+    out = {}
+    for name, soft, sym in variants:
+        t0 = time.perf_counter()
+        if sym is None:
+            seeds = mergem.self_adaptamer_seeds(t1, freq=10, soft_mask=soft)
+        else:
+            seeds = mergem.adaptamer_seeds(t1, t2, freq=10, soft_mask=soft)
+            if sym:
+                extra = mergem.adaptamer_seeds_flip(t1, t2, freq=10,
+                                                    soft_mask=soft)
+                seeds = mergem.SeedBatch(*[
+                    np.concatenate([getattr(seeds, f), getattr(extra, f)])
+                    for f in ("plen", "acont", "apost", "bcont", "bpost",
+                              "bcomp")])
+        t_seed = time.perf_counter() - t0
+        tubes = chainm.chain_tubes(seeds, amax, amax if sym is None else bmax,
+                                   alens_of(g1))
+        out[name] = (tubes, seeds.n, int(seeds.plen.astype(np.int64).sum()),
+                     t_seed, time.perf_counter() - t0 - t_seed)
+        del seeds
+    return out, t_gix, (t1, t2) if what == "masked" else None
+
+
+def start_host_references(mbp):
+    """The host references of phases 10 and 11, started in spawned worker
+    processes while the kernels build."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(len(HOST_REFS))
+    return pool, {what: pool.apply_async(host_reference, (what, mbp))
+                  for what in HOST_REFS}
+
+
+def join_host_references(pool, pending, t0):
+    """Wait for every host reference and stop the workers, so that no
+    phase is timed beside them."""
+    try:
+        refs = {what: res.get(timeout=900) for what, res in pending.items()}
+    finally:
+        pool.terminate()
+        pool.join()
+    for what, (_, t_gix, _) in refs.items():
+        log(f"host[{what}]: build_gix {t_gix:.3f} s"
+            f"{' (with the repeat masks)' if HOST_REFS[what][1] else ''}")
+    log(f"host references: {time.perf_counter() - t0:.1f} s from the "
+        f"script's start, {len(refs)} worker processes, kernel build "
+        f"alongside")
+    return refs
+
+
+def same_as_host(what, got, ref, dt):
+    """A device route's (TubeBatch, seeds, length sum) against a host
+    reference's, with both seeding times."""
+    tubes, ns, pl, t_seed, t_chain = ref
+    bad = tube_diff(tubes, got[0])
+    if bad or got[1:] != (ns, pl):
+        raise SystemExit(f"{what}: device TubeBatch ({got[0].n} tubes, "
+                         f"{got[1]} seeds, length sum {got[2]}) differs "
+                         f"from the host path's ({tubes.n}, {ns}, {pl}): "
+                         f"{bad}")
+    log(f"{what}: device TubeBatch, seeds and seed-length sum equal to the "
+        f"host path's ({tubes.n:,} tubes, {ns:,} seeds, length sum {pl:,}); "
+        f"device route {dt:.3f} s, host seeds + chain {t_seed:.3f} + "
+        f"{t_chain:.3f} s (in a worker process)")
+
+
+def fit_lines(what, cap):
+    """Each seed pass of a route: its expansion's total before compaction
+    against its slots, its kept seeds and alive driving rows."""
+    for i, f in enumerate(cap.fits):
+        if f["slots"] < f["total"]:
+            raise SystemExit(f"{what}: an expansion of {f['total']} seeds "
+                             f"took {f['slots']} slots")
+        log(f"  expansion[{what}] {i + 1}: total before compaction "
+            f"{f['total']:,}, slots {f['slots']:,}, kept {f['nseeds']:,}, "
+            f"alive driving rows {f['nalive']:,}")
+
+
+def device_route(what, fn, *args, **kw):
+    """One seed route on the card under SeedCapture: (result, capture,
+    seconds)."""
+    import torch
+    with SeedCapture() as cap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(*args, device="cuda", **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    if got is None:
+        raise SystemExit(f"{what}: declined on the card ({cap.routes})")
+    fit_lines(what, cap)
+    return got, cap, dt
+
+
+def main_path_route(name, g1, g2, route, ref, **kw):
+    """align_genomes on the card through a phase-11 route: the route taken,
+    every kernel launched, the host reference's seeds and tubes."""
+    from fastga_tpu_torch.ops import cuda_build
+    with SeedCapture(inputs=False) as cap:
+        cuda_build.reset_launches()
+        ovls, stats, wall = run_main_path(name, g1, g2, **kw)
+        launches = dict(cuda_build.LAUNCHES)
+    check_routes(name, cap, [(route, True)])
+    check_seeds(name, stats, (ref[1], ref[0].n))
+    check_launches(name, launches)
+    if not ovls:
+        raise SystemExit(f"{name}: no alignments")
+    return launches
+
+
+def phase_masks(gs, refs):
+    """Phase 11: the masked-table and -S routes on the repeat-rich pair
+    against the host references of the worker processes, align_genomes
+    through them, then merge_path and fused_scan on the largest inputs of
+    each column count and scan spec these routes gave them."""
+    from fastga_tpu_torch.ops import device_pipeline as tp
+    t0 = time.perf_counter()
+    g1, g2, _, _ = gs
+    ref = {k: v for out, _, _ in refs.values() for k, v in out.items()}
+    t1, t2 = refs["masked"][2]
+    log(f"masked tables: {t1.n:,} / {t2.n:,} entries, "
+        f"{int((t1.maskb > 0).sum()):,} / {int((t2.maskb > 0).sum()):,} "
+        f"with a mask byte")
+    alens = alens_of(g1)
+    amax = int(g1.contig_lengths().max())
+    bmax = int(g2.contig_lengths().max())
+    merge, scan = {}, {}
+    for name, soft, sym, selfish in (
+            ("hard mask", False, False, False), ("-M", True, False, False),
+            ("-S -M", True, True, False), ("self -M", True, False, True)):
+        res, cap, dt = device_route(
+            name, tp.device_tubes_tables, t1, t1 if selfish else t2, alens,
+            amax, amax if selfish else bmax, soft_mask=soft, symmetric=sym)
+        same_as_host(name, res, ref[name], dt)
+        cap.fold_into(merge, scan)
+        if name == "hard mask" and (res[1], res[0].n) != REPEAT_RICH_SEEDS:
+            raise SystemExit(f"hard mask: {res[1]} seeds, {res[0].n} tubes; "
+                             f"the main path's are {REPEAT_RICH_SEEDS}")
+    res, cap, dt = device_route("-S", tp.device_tubes, g1, g2, alens,
+                                symmetric=True)
+    n1, n2 = (tp._pad_bucket(int(g.contig_lengths().sum())) for g in (g1, g2))
+    log(f"-S: the JAX package's slots {n1:,} (normal pass) and {n2:,} "
+        f"(flip pass), its flip pass's alive cap {n2 // 2:,}")
+    same_as_host("-S", res, ref["-S"], dt)
+    cap.fold_into(merge, scan)
+    del cap
+    route_alone("-S (genome tables cached)", "device_tubes",
+                (g1, g2, alens), dict(symmetric=True, device="cuda"))
+    launches = {
+        "-M": main_path_route("masked -M", g1, g2, "device_tubes_tables",
+                              ref["-M"], t1=t1, t2=t2,
+                              params=_params(soft_mask=True)),
+        "-S": main_path_route("symmetric -S", g1, g2, "device_tubes",
+                              ref["-S"], symmetric=True)}
+    kern = seed_kernel_rows(merge, scan, "masks")
+    log(f"masks and -S: phase {time.perf_counter() - t0:.1f} s")
+    return launches, kern
+
+
+def _params(**kw):
+    from fastga_tpu_torch.models import aligner
+    return aligner.FastGAParams(**kw)
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -2034,9 +2334,15 @@ def main(argv):
     from fastga_tpu_torch.ops import cuda_build
     from fastga_tpu_torch.ops.wave_ref import AlignSpec
     t0 = time.perf_counter()
-    cuda_build.build_kernels()
+    pool, pending = start_host_references(REPEAT_RICH_MBP)
+    try:
+        cuda_build.build_kernels()
+    except BaseException:
+        pool.terminate()
+        raise
     log(f"kernel build ({len(KERNELS)} sources): "
         f"{time.perf_counter() - t0:.1f} s")
+    refs = join_host_references(pool, pending, t0)
     for name in KERNELS:
         p = os.path.join(cuda_build.BUILD, name + ".ptxas.txt")
         if os.path.exists(p):
@@ -2054,7 +2360,7 @@ def main(argv):
     done(3)
     launches, cap_u, run_u = phase_uniform()
     done(4)
-    launches_rr, cap_rr, run_rr, g_rr = phase_repeatrich(REPEAT_RICH_MBP)
+    launches_rr, cap_rr, run_rr, gs_rr = phase_repeatrich(REPEAT_RICH_MBP)
     done(5)
     kern.update(phase_seed_kernels(cap_u, cap_rr))
     u_ref = (cap_u.tubes, cap_u.tubes_args)
@@ -2065,11 +2371,15 @@ def main(argv):
     done(7)
     phase_profile()
     done(8)
-    phase_cli(run_u, run_rr)
+    phase_cli(run_u, run_rr, gs_rr)
     done(9)
-    launches_s, launches_b, _ = phase_seed_routes(g_rr, rr_ref, u_ref)
-    del g_rr, rr_ref, u_ref
+    launches_s, launches_b, _ = phase_seed_routes(
+        gs_rr[0], rr_ref, u_ref, refs.pop("self"))
+    del rr_ref, u_ref
     done(10)
+    launches_m, _ = phase_masks(gs_rr, refs)
+    del gs_rr, refs
+    done(11)
 
     summary = []
     for name, src, rep in (
@@ -2090,9 +2400,11 @@ def main(argv):
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=None,
             equal=k["max_abs_err"] == 0))
-    log(f"launches (uniform / repeatrich / self / uniform128): " + ", ".join(
-        f"{n} {launches[n]} / {launches_rr[n]} / {launches_s[n]} / "
-        f"{launches_b[n]}" for n in KERNELS))
+    log(f"launches (uniform / repeatrich / self / uniform128 / masked -M "
+        f"/ symmetric -S): " + ", ".join(
+            f"{n} {launches[n]} / {launches_rr[n]} / {launches_s[n]} / "
+            f"{launches_b[n]} / {launches_m['-M'][n]} / "
+            f"{launches_m['-S'][n]}" for n in KERNELS))
     for row in summary:
         if not row["equal"] or row["launches"] <= 0 or row["ms"] is None:
             raise SystemExit(f"kernel row incomplete: {row}")

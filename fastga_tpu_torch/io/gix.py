@@ -89,6 +89,13 @@ class GixTable:
 
         return bisect.bisect_left(_V(), probe)
 
+    def khi_klo(self) -> Tuple[np.ndarray, np.ndarray]:
+        """k-mer packed as (uint64 bases 0..31, uint16 bases 32..39)."""
+        kb = self.kbytes
+        khi = kb[:, :8].copy().view(">u8").reshape(-1).astype(np.uint64)
+        klo = kb[:, 8:10].copy().view(">u2").reshape(-1).astype(np.uint16)
+        return khi, klo
+
 
 def _length_perm(contig_lens: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Descending-length stable permutation + inverse (LSORT GIXmake.c:1628)."""

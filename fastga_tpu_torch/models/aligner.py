@@ -1,13 +1,13 @@
 """FastGA pipeline driver: seeds -> tubes -> wave alignments -> dedup.
 
-Port of fastga_tpu/models/aligner.py.  A two-genome comparison, and a
-self comparison without given tables, take their tubes from the device
+Port of fastga_tpu/models/aligner.py.  The tubes come from the device
 seed pipeline (ops/device_pipeline.py: GIX tables, adaptamer merge and
-chain sweep on the card, streamed in kmer panels past the single-shot
-bases); masks, the -S pass, self comparison with given tables and the
-exact engine build them on the host (io/gix, ops/merge, ops/chain), from
-the caller's GIX tables where it passes them.  The
-per-tube anti-diagonal tiling loop around Local_Alignment
+chain sweep on the card; host GIX tables uploaded where masks are in play
+or a self comparison has its table; streamed in kmer panels past the
+single-shot bases); an input the device routes decline before upload and
+the exact engine build them on the host (io/gix, ops/merge, ops/chain),
+from the caller's GIX tables where it passes them.  The per-tube
+anti-diagonal tiling loop around Local_Alignment
 (FastGA.c:3227-3341) feeds batches of tubes to the wave kernels on the
 card; then the per-contig-pair redundancy elimination
 (FastGA.c:3435-3694) and the deterministic (aread, abpos, bread, comp)
@@ -87,17 +87,18 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
     (default n=512, w=256, chunk=96, max_chunks=512, with an n=64 sibling
     for small and long batches and the W=512/2048 rescue lanes).
 
-    With no masks and no ``symmetric``, a two-genome comparison, and a self
-    comparison without ``t1``, take their tubes from the device seed
-    pipeline (ops/device_pipeline.py) on ``device``: the single-shot
-    route, or kmer-panel streaming where that declines (a genome past 96
-    Mi bases); masks, ``symmetric``, self comparison with ``t1`` and
-    ``engine="ref"`` seed on the host.  An input both device routes
-    decline before uploading anything (a cap of the JAX package, e.g.
-    ``freq`` above 10) is printed on stderr with the last reason and
-    seeded on the host; an error or a cap exceeded on the device
-    raises.  ``stats["seed_pipeline"]`` says which ran, and
-    ``verbose`` prints it on stderr."""
+    With ``engine="torch"`` the tubes come from the device seed pipeline
+    (ops/device_pipeline.py) on ``device`` (``_device_seeds``): masks, or a
+    self comparison with ``t1``, upload the host GIX tables (``t1``/``t2``,
+    else ``build_gix``); a pair with ``symmetric`` takes the -S route; any
+    other run the single-shot route, or kmer-panel streaming where that
+    declines (a genome past 96 Mi bases).  A self comparison ignores
+    ``symmetric``.  An input the device routes decline before uploading
+    anything (a cap of the JAX package, e.g. ``freq`` above 10, or a -S
+    pair past 96 Mi bases) is printed on stderr with the last reason and
+    seeded on the host, as is every run of ``engine="ref"``; an error or a
+    cap exceeded on the device raises.  ``stats["seed_pipeline"]`` says
+    which ran, and ``verbose`` prints it on stderr."""
     if engine not in ("ref", "torch"):
         raise ValueError(f"unknown wave engine '{engine}' "
                          f"(expected 'ref' or 'torch')")
@@ -132,10 +133,21 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
                  or (t2 is not None and not selfcmp and t2.maskb.any()))
 
     tubes = None
-    if engine == "torch" and not has_masks and not symmetric \
-            and not (selfcmp and t1 is not None):
-        dres = _device_seeds(gdb1, None if selfcmp else gdb2,
-                             alens_by_rank, params, dev)
+    if engine == "torch":
+        tables = None
+        if has_masks or (selfcmp and t1 is not None):
+            # host tables go up whole: the mask bytes exist only there
+            with prof.span("aligner.gix"):
+                if t1 is None:
+                    t1 = build_gix(gdb1)
+                if selfcmp:
+                    t2 = t1
+                elif t2 is None:
+                    t2 = build_gix(gdb2)
+            tables = (t1, t2)
+        dres = _device_seeds(gdb1, None if selfcmp else gdb2, tables,
+                             alens_by_rank, amax, bmax, params, symmetric,
+                             dev)
         if dres is not None:
             tubes, nseeds, plsum = dres
             stats["nseeds"] = nseeds
@@ -218,16 +230,28 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
     return out, stats
 
 
-def _device_seeds(gdb1, gdb2, alens_by_rank, params, dev):
-    """Tubes from the device seed pipeline: the single-shot route of a
-    pair (``device_tubes``) or of one genome (``gdb2`` None,
-    ``device_tubes_self``), then, if that declines, kmer-panel streaming.
-    None when both decline (``devp.DECLINE`` names the last reason); an
-    error on the device propagates."""
+def _device_seeds(gdb1, gdb2, tables, alens_by_rank, amax, bmax, params,
+                  symmetric, dev):
+    """Tubes from the device seed pipeline, on the route the input takes:
+    host GIX tables (``tables`` = (t1, t2), t2 t1 for self) uploaded by
+    ``device_tubes_tables``, with the -S flip pass for a pair; a pair with
+    ``symmetric`` by ``device_tubes(symmetric=True)``; otherwise the
+    single-shot route of a pair (``device_tubes``) or of one genome
+    (``gdb2`` None, ``device_tubes_self``), then, if that declines,
+    kmer-panel streaming.  None when the route declines (``devp.DECLINE``
+    names the last reason); an error on the device propagates."""
     kw = dict(freq=params.freq, chain_break=params.chain_break,
               chain_min=params.chain_min, device=dev)
     devp.DECLINE = None
     with prof.span("aligner.devpipe"):
+        if tables is not None:
+            return devp.device_tubes_tables(
+                tables[0], tables[1], alens_by_rank, amax, bmax,
+                soft_mask=params.soft_mask,
+                symmetric=symmetric and gdb2 is not None, **kw)
+        if symmetric and gdb2 is not None:
+            return devp.device_tubes(gdb1, gdb2, alens_by_rank,
+                                     symmetric=True, **kw)
         if gdb2 is None:
             dres = devp.device_tubes_self(gdb1, alens_by_rank, **kw)
         else:

@@ -1,36 +1,45 @@
 """Device seed pipeline: GIX tables, adaptamer merge and chain sweep on the
 card.
 
-Port of fastga_tpu/ops/device_pipeline.py, the unmasked routes without the
--S flip pass.  ``device_tubes`` takes a pair of genomes: per-genome syncmer
-entry tables built from the packed bases (one sort whose keys carry the
-payload), the adaptamer merge of the driver table (genome 1, forward
-entries) against genome 2's full table as ONE combined stream
-(merge_kernels.merge_sorted_streams) with insertion ranks, neighbour LCPs
-and the reference's freq-capped group windows from fused scans
-(scan_kernels.fused_scan), the ragged seed expansion, and the bucket-pair
-chain sweep (a sort of the seeds, a merge with their shifted copies,
-segmented scans for every per-chain aggregate).  ``device_tubes_self``
-seeds one genome against itself within its own table (``self_seeds``).
-``device_tubes_paneled`` streams either past the single-shot bases: the
-tables of one 24-bit kmer-prefix range at a time, their seeds appended to
-one buffer on the device and chained once.  Only the tube arrays come back
-to the host; the counts are the only other host syncs.
+Port of fastga_tpu/ops/device_pipeline.py.  ``device_tubes`` takes a pair
+of genomes: per-genome syncmer entry tables built from the packed bases
+(one sort whose keys carry the payload), the adaptamer merge of the driver
+table (genome 1, forward entries) against genome 2's full table as ONE
+combined stream (merge_kernels.merge_sorted_streams) with insertion ranks,
+neighbour LCPs and the reference's freq-capped group windows from fused
+scans (scan_kernels.fused_scan), the ragged seed expansion, and the
+bucket-pair chain sweep (a sort of the seeds, a merge with their shifted
+copies, segmented scans for every per-chain aggregate); ``symmetric`` adds
+the -S flip pass (genome 2 driving in every orientation against genome 1's
+full table).  ``device_tubes_self`` seeds one genome against itself within
+its own table (``self_seeds``).  ``device_tubes_tables`` uploads host GIX
+tables, the route of mask bytes (``-M``, ``#mask``, masked tables: they
+exist only on the host) and of a self comparison with a given table; it
+takes a pair (with or without -S) or self.  ``device_tubes_paneled``
+streams a pair or self past the single-shot bases: the tables of one
+24-bit kmer-prefix range at a time, their seeds appended to one buffer on
+the device and chained once.  Only the tube arrays come back to the host;
+the counts are the only other host syncs.
 
 Semantics are those of the host path (ops/merge.py, ops/chain.py): the same
-TubeBatch, seed count and seed-length sum.  Caps are the JAX package's.  The
-checks that need nothing on the device (total bases, contig count, field
-widths, freq) decline with the JAX package's reasons: the function returns
-None and sets ``DECLINE``, and the caller tries the next route.  A cap
-exceeded once the tables are on the device raises RuntimeError (GIX
-entries, seeds, tubes, a chain past its panels, more than PANEL_MAX kmer
-panels): the work never moves back to the host.  Where the JAX package
-declines after upload, the port reruns on the device instead: a kmer panel
-past its own caps at twice the panels, a self run's seeds past 2 * E1 at
-their own bucket, the paneled global seed buffer grown to its seeds.  The
-XLA sorts of the JAX pipeline are ``torch.sort`` here.  Masked tables and
-the -S flip pass are not ported (the aligner keeps the host seed path for
-them).
+TubeBatch, seed count and seed-length sum.  Caps are the JAX package's, but
+for the seed slots.  The checks that need nothing on the device (total
+bases, table entries, contig count, field widths, freq) decline with the
+JAX package's reasons: the function returns None and sets ``DECLINE``, and
+the caller tries the next route.  A cap exceeded once the tables are on the
+device raises RuntimeError (GIX entries, alive driving rows, tubes, a chain
+past its panels, more than PANEL_MAX kmer panels): the work never moves
+back to the host.  A seed expansion takes its own total's bucket of slots,
+read once before it allocates (``_expansion_slots``; a masked or -S pass's
+total counts the seeds it drops after the expansion), where the JAX package
+takes static slots (N1, 2 * E1, twice a table's rows) and declines past
+them.  Where the JAX package declines after upload, the port reruns on the
+device instead: a kmer panel past its own caps at twice the panels; the
+paneled global seed buffer grown to its seeds.  The -S flip pass's alive
+rows are its driver's rows (the JAX package declines past N2 // 2):
+nothing is sized by them, so they have no cap.  The XLA sorts of the JAX
+pipeline are ``torch.sort`` here; its one-key sort that compacts the kept
+seeds of a masked or -S pass is a stable compaction (``_compact``).
 
 ``build_gix_device`` is the index build of ``gixmake`` and the command
 line: ``gix_arrays`` of one genome, of which only the finished entry rows
@@ -345,17 +354,34 @@ def _pack6(vals, lo_count, E, device):
     return lo, hi
 
 
-def merge_seeds(T1, T2, ns_cap: int, freq: int = F):
+def merge_seeds(T1, T2, ns_cap: int = 0, freq: int = F,
+                soft_mask: bool = False, has_masks: bool = False,
+                maskb1=None, maskb2=None, flip: bool = False):
     """Adaptamer seeds between two device tables, both sorted by the
     composite entry key (kmer, cont, post, comp) with +MAX-tail validity
-    (the JAX package's ``presorted=True`` path, without masks or flip).
+    (the JAX package's ``presorted=True`` path).
 
     T1 (driver, forward entries drive) and T2 (members) merge into ONE
     stream; insertion ranks, lcps to the nearest T2 rows and T2's window
     minima transported to T1 rows come from one forward and one reverse
     fused scan; non-driving T1 rows ride along with a dead bit.  Returns
     (plen, acont, apost, bcont, bpost, bcomp, nseeds, nalive), rows at
-    index >= nseeds being padding, in the host's emission order."""
+    index >= nseeds being padding, in the host's emission order.  The
+    expansion takes its total's bucket of slots (``_expansion_slots``), or
+    ``ns_cap`` where that is more.
+
+    ``has_masks``: the tables' mask bytes (``maskb1``/``maskb2``, each
+    entry's masked-prefix length as an int32 tensor) ride the merge at
+    payload bit 54; a driving row whose own byte is not below ``mlen`` (its
+    plen under ``soft_mask``, else KMER + 1) does not drive, and a seed
+    whose member's byte is not below it is dropped after the expansion.
+    ``flip=True`` is the -S second pass (FastGA.c:833-913, host
+    ops/merge.adaptamer_seeds_flip): T1 is genome 2, driving in every
+    orientation, T2 genome 1; the seeds are (A = a forward member, B = the
+    driver with its orientation as bcomp), in (driver, member) order, the
+    host's multiset; pass the masks swapped.  Either drops seeds after the
+    expansion: the kept ones move to the front in slot order and nseeds
+    counts them (``_compact``)."""
     dev = T1[0].device
     E1 = T1[0].shape[0]
     E2 = T2[0].shape[0]
@@ -364,21 +390,27 @@ def merge_seeds(T1, T2, ns_cap: int, freq: int = F):
 
     k1a, k2a, val1 = _entry_keys(T1, 0)
     k1b, k2b, _ = _entry_keys(T2, 1)
-    # only forward T1 entries drive the merge (FastGA.c:916-928); the others
-    # stay in place with a dead bit (payload bit 62) so T1 stays sorted
-    drive1 = val1 & (T1[5] == 0)
-    dead1 = (val1 & ~drive1).to(torch.int64)
+    # only forward T1 entries drive the merge (FastGA.c:916-928; any
+    # orientation in the flip pass); the others stay in place with a dead
+    # bit (payload bit 62) so T1 stays sorted
+    drive1 = val1 if flip else val1 & (T1[5] == 0)
+    vup1 = (val1 & ~drive1).to(torch.int64) << 62
 
     # T2-space window minima, 6 bits each (lo = 6 values, hi = up to 3 more
-    # above bit 36), ride the merge as payload
+    # at bits 36-53), ride the merge as payload; the mask bytes at bits
+    # 54-59, out of the 18-bit planes the scans carry
     wup, wdn = _window_mins(T2[6], n2, freq)
     nlo = min(len(wup), 6)
     up_lo2, up_hi2 = _pack6(wup, nlo, E2, dev)
     dn_lo2, dn_hi2 = _pack6(wdn, nlo, E2, dev)
+    vup2 = (up_hi2 << 36) | up_lo2
+    if has_masks:
+        mb2 = maskb2.to(torch.int64)
+        vup1 = vup1 | (maskb1.to(torch.int64) << 54)
+        vup2 = vup2 | (mb2 << 54)
     k1s, k2s, vups, vdns = merge_sorted_streams(
-        (k1a, k2a, dead1 << 62, torch.zeros(E1, dtype=torch.int64,
-                                            device=dev)),
-        (k1b, k2b, (up_hi2 << 36) | up_lo2, (dn_hi2 << 36) | dn_lo2))
+        (k1a, k2a, vup1, torch.zeros(E1, dtype=torch.int64, device=dev)),
+        (k1b, k2b, vup2, (dn_hi2 << 36) | dn_lo2))
 
     valid = k2s != I64MAX
     is2 = ((k2s >> 46) & 1).to(torch.bool) & valid
@@ -437,25 +469,31 @@ def merge_seeds(T1, T2, ns_cap: int, freq: int = F):
     dnc = torch.where(dn0, 1 + win_ok_counts((dn_p0, dn_p1, dn_p2)), 0)
     count = upc + dnc
     alive = alive0 & (count < freq)
+    if has_masks:
+        mlen = plen if soft_mask else KMER + 1
+        alive = alive & (((vups >> 54) & 63) < mlen)
     cnt = torch.where(alive, count, 0).to(torch.int64)
 
     # ragged expansion directly over the merged stream: per-seed owner rows
     # from a scatter-max of row indices at each owner's first slot plus a
-    # forward fill (owners appear in increasing row order)
+    # forward fill (owners appear in increasing row order); in the flip
+    # pass the driver's orientation rides at bit 47
     v1 = ((plen.to(torch.int64) << 40) | (cont.to(torch.int64) << 28)
           | post.to(torch.int64))
+    if flip:
+        v1 = v1 | (((k2s >> 5) & 1) << 47)
     y0 = ins - dnc
     nalive = alive.sum()
     cum_incl = torch.cumsum(cnt, 0)     # nseeds < 2^31
     cum_excl = cum_incl - cnt
     nseeds = cum_incl[M - 1]
-    # starts past the cap are dropped (scatter only the alive rows below it)
-    own = alive & (cum_excl < ns_cap)
-    row0 = torch.full((ns_cap,), -1, dtype=torch.int64,
+    slots = _expansion_slots(nseeds, ns_cap)
+    own = alive & (cum_excl < slots)
+    row0 = torch.full((slots,), -1, dtype=torch.int64,
                       device=dev).scatter_reduce_(
         0, cum_excl[own], ridx[own].to(torch.int64), "amax",
         include_self=True)
-    sidx = torch.arange(ns_cap, dtype=torch.int32, device=dev)
+    sidx = torch.arange(slots, dtype=torch.int32, device=dev)
     # the owner row fills forward (a running max), and so does the owner's
     # first slot (from the marked slots)
     rowf, start_slot = fused_scan((row0, sidx),
@@ -465,42 +503,96 @@ def merge_seeds(T1, T2, ns_cap: int, freq: int = F):
     g1 = v1[ec]
     y = y0[ec] + (sidx - start_slot)
     yc = y.clamp(0, E2 - 1).to(torch.int64)
+    # the member's mask byte rides the low 6 bits
     t2pack = ((T2[4].to(torch.int64) << 19) | (T2[3].to(torch.int64) << 7)
               | (T2[5].to(torch.int64) << 6))
+    if has_masks:
+        t2pack = t2pack | mb2
     tg = t2pack[yc]
 
     pl = ((g1 >> 40) & 63).to(torch.int32)
-    ac = ((g1 >> 28) & (MAX_CONT - 1)).to(torch.int32)
-    ap = (g1 & (MAX_POST - 1)).to(torch.int32)
-    bp = (tg >> 19).to(torch.int32)
-    bc = ((tg >> 7) & (MAX_CONT - 1)).to(torch.int32)
-    bo = ((tg >> 6) & 1).to(torch.int32)
-    return pl, ac, ap, bc, bp, bo, nseeds, nalive
+    # the driver's side and the member's (A and B swap in the flip pass)
+    dc = ((g1 >> 28) & (MAX_CONT - 1)).to(torch.int32)
+    dpos = (g1 & (MAX_POST - 1)).to(torch.int32)
+    mc = ((tg >> 7) & (MAX_CONT - 1)).to(torch.int32)
+    mpos = (tg >> 19).to(torch.int32)
+    mo = ((tg >> 6) & 1).to(torch.int32)
+    if not (has_masks or flip):
+        return pl, dc, dpos, mc, mpos, mo, nseeds, nalive
+    keep = sidx < nseeds
+    if flip:
+        seeds = (pl, mc, mpos, dc, dpos, ((g1 >> 47) & 1).to(torch.int32))
+        keep = keep & (mo == 0)
+    else:
+        seeds = (pl, dc, dpos, mc, mpos, mo)
+    if has_masks:
+        keep = keep & ((tg & 63) < (pl if soft_mask else KMER + 1))
+    return _compact(keep, seeds) + (nalive,)
 
 
-def _with_plsum(out, nscap: int):
+def _expansion_slots(total, ns_cap: int) -> int:
+    """Slots of a seed expansion, from its total (a tensor; the seed
+    function's one host sync): the total's bucket, at least 8,192, or
+    ``ns_cap`` where that is more (the JAX package's slots, where a test
+    compares rows with its)."""
+    return max(int(ns_cap), _pad_bucket(max(int(total), 1 << 13)))
+
+
+def _compact(keep, seeds):
+    """The kept slots of an expansion moved to the front in slot order (the
+    JAX package's one-key sort of the slots): each kept slot's rank, an
+    exclusive fused_scan sum, then one scatter of the packed seed.  Returns
+    the six seed columns and the kept count."""
+    pl, ac, ap, bc, bp, bo = (x.to(torch.int64) for x in seeds)
+    slots = keep.shape[0]
+    k = keep.to(torch.int32)
+    incl = fused_scan((k,), (("sum", None),))[0]
+    # dropped slots all go to the spare last row
+    dst = torch.where(keep, incl - k, slots).to(torch.int64)
+
+    def scatter(v):
+        return torch.zeros(slots + 1, dtype=torch.int64,
+                           device=v.device).scatter_(0, dst, v)[:slots]
+    s1 = scatter((pl << 40) | (ac << 28) | ap)
+    s2 = scatter((bc << 29) | (bp << 1) | bo)
+    nseeds = incl[-1].to(torch.int64)
+    return ((s1 >> 40).to(torch.int32),
+            ((s1 >> 28) & (MAX_CONT - 1)).to(torch.int32),
+            (s1 & (MAX_POST - 1)).to(torch.int32),
+            (s2 >> 29).to(torch.int32),
+            ((s2 >> 1) & (MAX_POST - 1)).to(torch.int32),
+            (s2 & 1).to(torch.int32), nseeds)
+
+
+def _with_plsum(out):
     """A seed function's outputs plus the seed-length sum over the valid
     prefix: (plen, acont, apost, bcont, bpost, bcomp, nseeds, nalive,
     plsum)."""
     pl, ns = out[0], out[6]
-    sidx = torch.arange(nscap, device=pl.device)
+    sidx = torch.arange(pl.shape[0], device=pl.device)
     return tuple(out) + (torch.where(sidx < ns, pl, 0).sum(),)
 
 
-def _merge_seeds_sum(T1, T2, nscap: int, freq: int = F):
-    """merge_seeds plus the seed-length sum (``_with_plsum``)."""
-    return _with_plsum(merge_seeds(T1, T2, nscap, freq), nscap)
+def _merge_seeds_sum(T1, T2, nscap: int = 0, freq: int = F, **masks):
+    """merge_seeds plus the seed-length sum (``_with_plsum``); ``masks``
+    are merge_seeds' mask arguments."""
+    return _with_plsum(merge_seeds(T1, T2, nscap, freq, **masks))
 
 
-def self_seeds(T1, ns_cap: int, freq: int = F):
+def self_seeds(T1, ns_cap: int = 0, freq: int = F, soft_mask: bool = False,
+               has_masks: bool = False, maskb1=None):
     """Self-comparison adaptamer seeds within one sorted table (port of
-    ops/merge.self_adaptamer_seeds, without masks): every entry of either
-    orientation pairs with the other members of its own lcp group, whose
-    window counts come from the table's own adjacent-lcp array.  The ragged
-    expansion runs over the table rows: an owner scatter, then one
-    fused_scan fills the owner row forward (a running max) and the owner's
-    first slot (a ``last`` fill).  Returns (plen, acont, apost, bcont,
-    bpost, bcomp, nseeds, nalive) as merge_seeds does."""
+    ops/merge.self_adaptamer_seeds): every entry of either orientation
+    pairs with the other members of its own lcp group, whose window counts
+    come from the table's own adjacent-lcp array.  The ragged expansion
+    runs over the table rows: an owner scatter, then one fused_scan fills
+    the owner row forward (a running max) and the owner's first slot (a
+    ``last`` fill).  ``has_masks`` tests the table's mask bytes
+    (``maskb1``) as merge_seeds does, on the driving entry and then on the
+    member, and compacts the kept seeds (``_compact``).  Returns (plen,
+    acont, apost, bcont, bpost, bcomp, nseeds, nalive) at the slots
+    merge_seeds takes (a self run fans out up to freq-2 seeds an entry,
+    past the JAX package's 2 * E1)."""
     w0, _w1, _w2, c1, p1, o1, l1, n1, _vs = T1
     dev = w0.device
     E1 = w0.shape[0]
@@ -524,19 +616,22 @@ def self_seeds(T1, ns_cap: int, freq: int = F):
     upc = torch.where(alive0, upc, 0)
     dnc = torch.where(alive0, dnc, 0)
     alive = alive0 & (1 + upc + dnc < freq)
+    if has_masks:
+        mb1 = maskb1.to(torch.int64)
+        alive = alive & (mb1 < (plen if soft_mask else KMER + 1))
     cnt = torch.where(alive, upc + dnc, 0).to(torch.int64)
 
     nalive = alive.sum()
     cum_incl = torch.cumsum(cnt, 0)     # nseeds < 2^31
     cum_excl = cum_incl - cnt
     nseeds = cum_incl[E1 - 1]
-    # starts past the cap are dropped (scatter only the owners below it)
-    own = (cnt > 0) & (cum_excl < ns_cap)
-    row0 = torch.full((ns_cap,), -1, dtype=torch.int64,
+    slots = _expansion_slots(nseeds, ns_cap)
+    own = (cnt > 0) & (cum_excl < slots)
+    row0 = torch.full((slots,), -1, dtype=torch.int64,
                       device=dev).scatter_reduce_(
         0, cum_excl[own], iota[own].to(torch.int64), "amax",
         include_self=True)
-    sidx = torch.arange(ns_cap, dtype=torch.int32, device=dev)
+    sidx = torch.arange(slots, dtype=torch.int32, device=dev)
     rowf, start_slot = fused_scan((row0, sidx),
                                   (("max", None), ("last", 0)),
                                   ((row0 >= 0).to(torch.int32),))
@@ -552,6 +647,8 @@ def self_seeds(T1, ns_cap: int, freq: int = F):
     yc = y.clamp(0, E1 - 1).to(torch.int64)
     tpack = ((p1.to(torch.int64) << 19) | (c1.to(torch.int64) << 7)
              | (o1.to(torch.int64) << 6))
+    if has_masks:
+        tpack = tpack | mb1
     tg = tpack[yc]
 
     pl = ((g1 >> 40) & 63).to(torch.int32)
@@ -560,23 +657,37 @@ def self_seeds(T1, ns_cap: int, freq: int = F):
     bp = (tg >> 19).to(torch.int32)
     bc = ((tg >> 7) & (MAX_CONT - 1)).to(torch.int32)
     bo = o1[ec] ^ ((tg >> 6) & 1).to(torch.int32)
-    return pl, ac, ap, bc, bp, bo, nseeds, nalive
+    if not has_masks:
+        return pl, ac, ap, bc, bp, bo, nseeds, nalive
+    keep = (sidx < nseeds) & ((tg & 63) < (pl if soft_mask else KMER + 1))
+    return _compact(keep, (pl, ac, ap, bc, bp, bo)) + (nalive,)
 
 
-def _self_seeds_sum(T1, nscap: int, freq: int = F):
-    """self_seeds plus the seed-length sum (``_with_plsum``)."""
-    return _with_plsum(self_seeds(T1, nscap, freq), nscap)
+def _self_seeds_sum(T1, nscap: int = 0, freq: int = F, **masks):
+    """self_seeds plus the seed-length sum (``_with_plsum``); ``masks``
+    are self_seeds' mask arguments."""
+    return _with_plsum(self_seeds(T1, nscap, freq, **masks))
 
 
-def _self_seeds_fit(T1, nscap: int, freq: int = F):
-    """_self_seeds_sum at ``nscap`` slots; more seeds (a self run fans out
-    up to freq-2 seeds an entry) rerun the expansion at the seeds' own
-    bucket, where the JAX package declines.  Returns (outputs, slots)."""
-    out = _self_seeds_sum(T1, nscap, freq)
-    if int(out[6]) > nscap:
-        nscap = _pad_bucket(int(out[6]))
-        out = _self_seeds_sum(T1, nscap, freq)
-    return out, nscap
+def _sym_seeds_sum(T1, T2, nscap1: int = 0, nscap2: int = 0, freq: int = F,
+                   soft_mask: bool = False, has_masks: bool = False,
+                   maskb1=None, maskb2=None):
+    """-S (FastGA.c:2410-2470): the normal pass merge_seeds(T1, T2), then
+    the flip pass merge_seeds(T2, T1, flip=True) with the masks swapped
+    (each at least ``nscap1`` / ``nscap2`` slots).  The flip seeds follow
+    the normal pass's valid prefix in one buffer of both passes' slots,
+    the seed count and length sum over both; nalive is the normal
+    pass's."""
+    mk = dict(soft_mask=soft_mask, has_masks=has_masks)
+    oa = _merge_seeds_sum(T1, T2, nscap1, freq, maskb1=maskb1,
+                          maskb2=maskb2, **mk)
+    ob = _merge_seeds_sum(T2, T1, nscap2, freq, maskb1=maskb2,
+                          maskb2=maskb1, flip=True, **mk)
+    nsa = int(oa[6])
+    cols = tuple(torch.cat([a[:nsa], b, torch.zeros(
+        a.shape[0] - nsa, dtype=b.dtype, device=b.device)])
+        for a, b in zip(oa[:6], ob[:6]))
+    return cols + (oa[6] + ob[6], oa[7], oa[8] + ob[8])
 
 
 # ---------------------------------------------------------------------------
@@ -1019,14 +1130,14 @@ def _run_chain(seeds_out, nscap, tcap, chain_break, chain_min, amax, bmax,
     return res, ns, nalive, plsum
 
 
-def _finish_tubes(res, ns, nalive, plsum, nscap, acap, extra_checks):
+def _finish_tubes(res, ns, nalive, plsum, acap, extra_checks):
     """Tube arrays -> (TubeBatch, nseeds, plsum); raises when a cap was
     exceeded."""
     (ga, gb, gc, dgmin, dgmax, alow, ahgh, pair, cov, nt) = \
         [_numpy(x) for x in res]
     ns, nalive, plsum = int(ns), int(nalive), int(plsum)
     # the tube overflow test is against the emitted length
-    if ns > nscap or nalive > acap or int(nt) > len(ga) or extra_checks():
+    if nalive > acap or int(nt) > len(ga) or extra_checks():
         _over_cap("seed/tube caps exceeded")
     n = int(nt)
     tubes = TubeBatch(
@@ -1040,11 +1151,15 @@ def _finish_tubes(res, ns, nalive, plsum, nscap, acap, extra_checks):
 
 def device_tubes(gdb1, gdb2, alens_by_rank, freq: int = 10,
                  chain_break: int = 2000, chain_min: int = 170,
-                 tcap: int = 1 << 15, device=None):
+                 tcap: int = 1 << 15, device=None, symmetric: bool = False):
     """TubeBatch of a genome pair from the device pipeline on ``device``
     (default: the card): (tubes, nseeds, plsum), or None with DECLINE set
     when the input exceeds a cap or field width checked before any upload.
-    A cap exceeded on the device raises RuntimeError."""
+    A cap exceeded on the device raises RuntimeError.  ``symmetric`` adds
+    the -S flip pass (``_sym_seeds_sum``); genome 1 then takes its full
+    two-orientation table, since the flip pass's members need its
+    reverse-complement entries.  The seed slots are the expansion's own
+    (merge_seeds), where the JAX package caps them at N1."""
     dev = torch.device("cuda" if device is None else device)
     lens1 = gdb1.contig_lengths()
     lens2 = gdb2.contig_lengths()
@@ -1064,19 +1179,11 @@ def device_tubes(gdb1, gdb2, alens_by_rank, freq: int = 10,
     N2 = _pad_bucket(int(lens2.sum()))
     cache1 = _dev_cache(gdb1, N1, dev)
     cache2 = _dev_cache(gdb2, N2, dev)
-    # seed/alive caps track the genome size: seed fan-out per driving entry
-    # is up to freq
-    NSCAP_FULL = max(N1, 1 << 13)
-    # a repeated run of the same pair sizes the expansion from the previous
-    # seed count; an overflow of that tight cap retries at the full cap
-    est_key = ("ns_est", N1, N2, freq)
-    est = cache1.get(est_key)
-    NSCAP = (min(_pad_bucket(max(est + (est >> 2), 1 << 13)), NSCAP_FULL)
-             if est is not None else NSCAP_FULL)
     ACAP = max(N1 // 2, 1 << 12)
 
     with prof.span("devpipe.gix1", dev):
-        T1 = cache1.get(("drv", N1))
+        T1 = (_full_table(cache1, gdb1, lens1, N1, dev) if symmetric
+              else cache1.get(("drv", N1)))
         if T1 is None:
             # unsorted forward candidates -> count -> tight sorted driver
             # table (one half-size sort; cached per GDB)
@@ -1089,28 +1196,23 @@ def device_tubes(gdb1, gdb2, alens_by_rank, freq: int = 10,
         T2 = _full_table(cache2, gdb2, lens2, N2, dev)
     E2 = T2[0].shape[0]
     with prof.span("devpipe.merge", dev):
-        caps = [NSCAP] + ([NSCAP_FULL] if NSCAP < NSCAP_FULL else [])
-        for ci, nscap_try in enumerate(caps):
-            mout = _merge_seeds_sum(T1, T2, nscap_try, freq)
-            ns_host = int(mout[6])
-            if ns_host <= nscap_try or ci + 1 == len(caps):
-                NSCAP = nscap_try
-                cache1[est_key] = ns_host
-                break
+        mout = (_sym_seeds_sum(T1, T2, freq=freq) if symmetric
+                else _merge_seeds_sum(T1, T2, freq=freq))
     ne1, ne2 = int(T1[7]), int(T2[7])
     T1 = T2 = None
-    return _tubes_from_seeds(mout, NSCAP, ACAP, tcap, chain_break, chain_min,
+    return _tubes_from_seeds(mout, ACAP, tcap, chain_break, chain_min,
                              amax, bmax, alens_by_rank, dev,
                              lambda: ne1 > E1 or ne2 > E2)
 
 
-def _tubes_from_seeds(mout, nscap, acap, tcap, chain_break, chain_min, amax,
-                      bmax, alens_by_rank, device, extra_checks):
+def _tubes_from_seeds(mout, acap, tcap, chain_break, chain_min, amax,
+                      bmax, alens_by_rank, device, extra_checks, nscap=None):
     """The chain sweep over a seed function's outputs, then _finish_tubes.
-    More tubes than the tube cap rerun the chain stage at a larger cap (the
-    seeds stay on the device); more seeds or alive rows than their caps
-    raise before the sweep."""
-    if int(mout[6]) > nscap or int(mout[7]) > acap:
+    The tube cap scales with ``nscap``, by default the outputs' rows; more
+    tubes than it rerun the chain stage at a larger cap (the seeds stay on
+    the device); more alive rows than their cap raise before the sweep."""
+    nscap = mout[0].shape[0] if nscap is None else nscap
+    if int(mout[7]) > acap:
         _over_cap("seed/tube caps exceeded")
     tcap_eff = _tcap_for(nscap, tcap)
     with prof.span("devpipe.chain", device):
@@ -1123,7 +1225,7 @@ def _tubes_from_seeds(mout, nscap, acap, tcap, chain_break, chain_min, amax,
                 break
             tcap_eff = min(_pad_bucket(nt_host + (nt_host >> 2)), 1 << 22)
         return _finish_tubes(
-            res, ns, nalive, plsum, nscap, acap,
+            res, ns, nalive, plsum, acap,
             lambda: extra_checks() or nt_host > tcap_eff)
 
 
@@ -1134,10 +1236,8 @@ def device_tubes_self(gdb1, alens_by_rank, freq: int = 10,
     ``device`` (default: the card): its GIX table (gix_arrays, cached per
     GDB), self_seeds and the chain sweep.  (tubes, nseeds, plsum), or None
     with DECLINE set before any upload; a cap exceeded on the device
-    raises RuntimeError.
-
-    The expansion first takes the JAX package's seed cap, 2 * E1
-    (``_self_seeds_fit``)."""
+    raises RuntimeError.  The seed slots are the expansion's own
+    (self_seeds), where the JAX package caps them at 2 * E1."""
     dev = torch.device("cuda" if device is None else device)
     lens1 = gdb1.contig_lengths()
     if int(lens1.sum()) == 0 or int(lens1.sum()) > _MAX_DEV_BASES:
@@ -1152,17 +1252,82 @@ def device_tubes_self(gdb1, alens_by_rank, freq: int = 10,
 
     N1 = _pad_bucket(int(lens1.sum()))
     E1 = max(1 << 12, N1)
-    NSCAP = max(E1 * 2, 1 << 13)
     ACAP = max(E1, 1 << 12)
     with prof.span("devpipe.gix1", dev):
         T1 = _full_table(_dev_cache(gdb1, N1, dev), gdb1, lens1, N1, dev)
     with prof.span("devpipe.merge", dev):
-        mout, NSCAP = _self_seeds_fit(T1, NSCAP, freq)
+        mout = _self_seeds_sum(T1, freq=freq)
     ne1 = int(T1[7])
     T1 = None
-    return _tubes_from_seeds(mout, NSCAP, ACAP, tcap, chain_break, chain_min,
+    return _tubes_from_seeds(mout, ACAP, tcap, chain_break, chain_min,
                              amax, amax, alens_by_rank, dev,
                              lambda: ne1 > E1)
+
+
+def _upload_table(t, device):
+    """Host io.gix.GixTable -> device entry arrays of _pad_bucket(t.n) rows
+    (zero past t.n) and its mask bytes: (T, maskb, E)."""
+    E = _pad_bucket(t.n)
+    khi, klo = t.khi_klo()
+
+    def pad32(x):
+        a = np.zeros(E, np.int32)
+        a[:len(x)] = x
+        return torch.as_tensor(a, device=device)
+    w0 = pad32((khi >> np.uint64(32)).astype(np.uint32).view(np.int32))
+    w1 = pad32((khi & np.uint64(M32)).astype(np.uint32).view(np.int32))
+    w2 = pad32((klo.astype(np.uint32) << 16).view(np.int32))
+    T = (w0, w1, w2, pad32(t.cont), pad32(t.post),
+         pad32(t.comp.astype(np.int32)), pad32(np.minimum(t.lcp, KMER)),
+         torch.tensor(t.n, dtype=torch.int64, device=device), None)
+    return T, pad32(t.maskb), E
+
+
+def device_tubes_tables(t1, t2, alens_by_rank, amax: int, bmax: int,
+                        freq: int = 10, chain_break: int = 2000,
+                        chain_min: int = 170, tcap: int = 1 << 15,
+                        soft_mask: bool = False, symmetric: bool = False,
+                        device=None):
+    """TubeBatch from host io.gix.GixTables uploaded to ``device``
+    (default: the card): a pair, or a self comparison when ``t2 is t1``;
+    ``symmetric`` adds the -S flip pass to a pair.  The route of mask
+    bytes, which exist only in host tables, and of a self comparison with
+    a given table.  (tubes, nseeds, plsum), or None with DECLINE set before
+    any upload; a cap exceeded on the device raises RuntimeError.  The seed
+    slots are each expansion's own, from its total before the masked or
+    flipped seeds are dropped, where the JAX package caps them at twice
+    the uploaded table's rows (genome 2's for the flip pass)."""
+    dev = torch.device("cuda" if device is None else device)
+    selfish = t2 is t1
+    if freq > MAX_FREQ:
+        return _decline(f"-f {freq} > device merge cap {MAX_FREQ}")
+    if t1.n >= (1 << 26) or (not selfish and t2.n >= (1 << 26)):
+        return _decline("GIX table exceeds 2^26 entries")
+    if len(t1.perm) >= MAX_CONT or len(t2.perm) >= MAX_CONT:
+        return _decline(f">= {MAX_CONT} contigs")
+    if amax + 2 * bmax >= (1 << 30) or max(amax, bmax) >= MAX_POST:
+        return _decline("contig length exceeds device field width")
+
+    mk = dict(soft_mask=soft_mask, has_masks=bool(
+        t1.maskb.any() or t2.maskb.any() or soft_mask))
+    with prof.span("devpipe.gix1", dev):
+        T1, mb1, E1 = _upload_table(t1, dev)
+    ACAP = max(E1, 1 << 12)
+    if selfish:
+        with prof.span("devpipe.merge", dev):
+            mout = _self_seeds_sum(T1, freq=freq, maskb1=mb1, **mk)
+    else:
+        with prof.span("devpipe.gix2", dev):
+            T2, mb2, _ = _upload_table(t2, dev)
+        with prof.span("devpipe.merge", dev):
+            mout = (_sym_seeds_sum(T1, T2, freq=freq, maskb1=mb1,
+                                   maskb2=mb2, **mk) if symmetric
+                    else _merge_seeds_sum(T1, T2, freq=freq, maskb1=mb1,
+                                          maskb2=mb2, **mk))
+        T2 = mb2 = None
+    T1 = mb1 = None
+    return _tubes_from_seeds(mout, ACAP, tcap, chain_break, chain_min,
+                             amax, bmax, alens_by_rank, dev, lambda: False)
 
 
 # ---------------------------------------------------------------------------
@@ -1354,8 +1519,9 @@ def device_tubes_paneled(gdb1, gdb2, alens_by_rank, freq: int = 10,
     nb = min(_pad_bucket(max(goff, 1 << 13)), GCAP)
     seeds = _unpack_seeds(g1[:nb], g2[:nb]) + (goff, 0, plsum)
     g1 = g2 = None
-    return _tubes_from_seeds(seeds, GCAP, 0, tcap, chain_break, chain_min,
-                             amax, bmax, alens_by_rank, dev, lambda: False)
+    return _tubes_from_seeds(seeds, 0, tcap, chain_break, chain_min,
+                             amax, bmax, alens_by_rank, dev, lambda: False,
+                             nscap=GCAP)
 
 
 # ---------------------------------------------------------------------------

@@ -174,8 +174,9 @@ def test_aln_file_matches_jax_cli(pair, same_date, monkeypatch):
 @pytest.mark.parametrize("case", ["M", "mask", "S", "T1", "self", "f20",
                                   "lics"])
 def test_flags_match_jax_cli(pair, self_genome, case, stats_seen, capsys):
-    """The flags that seed on the host (-M, #mask, -S, -f past the device
-    cap) and those that do not (-T1, -l/-i/-c/-s, one source)."""
+    """The flags that seed on the device (-M and #mask through the host
+    tables uploaded, -S, -T1, -l/-i/-c/-s, one source) and -f past the
+    device cap, which seeds on the host."""
     A, B = _fa(pair)
     args = {"M": ["-M", A, B], "mask": [A, f"#{pair}/Am.1ano", B],
             "S": ["-S", A, B], "T1": ["-T1", A, B],
@@ -186,7 +187,7 @@ def test_flags_match_jax_cli(pair, self_genome, case, stats_seen, capsys):
     err = capsys.readouterr().err
     assert got == jax_ref(args)
     assert got.count("\n") >= 2
-    assert seeds == ("device" if case in ("T1", "lics", "self") else "host")
+    assert seeds == ("host" if case == "f20" else "device")
     if case == "f20":
         assert "device seed pipeline declined (-f 20" in err
         assert stats_seen[-1]["seed_decline"].startswith("-f 20")

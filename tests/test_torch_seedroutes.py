@@ -168,15 +168,14 @@ def test_panel_cap_past_panel_max_raises(g, monkeypatch):
 
 
 def test_self_seeds_rerun_at_their_bucket(g):
-    """Self seeds past the first cap rerun the expansion at their own
-    bucket (the 24 Mbp repeat-rich self run needs 2.82 seeds an entry,
-    past the JAX package's 2 * E1), with every seed of the full run."""
+    """Self seeds past the slots asked for take their own bucket (the 24
+    Mbp repeat-rich self run needs 2.82 seeds an entry, past the JAX
+    package's 2 * E1), with every seed of a run at ample slots."""
     T = tp._full_table({}, g.tg1, g.tg1.contig_lengths(), 1 << 15, CPU)
     want = convert.outputs_to_numpy(tp._self_seeds_sum(T, 1 << 16, 10))
-    out, nscap = tp._self_seeds_fit(T, 4096, 10)
-    got = convert.outputs_to_numpy(out)
-    ns = want[6]
-    assert nscap == tp._pad_bucket(ns) and 4096 < ns <= nscap
+    got = convert.outputs_to_numpy(tp._self_seeds_sum(T, 4096, 10))
+    ns, nscap = want[6], len(got[0])
+    assert nscap == tp._pad_bucket(max(ns, 1 << 13)) and 4096 < ns <= nscap
     assert got[6:] == want[6:]
     for i in range(6):
         assert _eq(want[i][:ns], got[i][:ns]), f"column {i}"
@@ -237,7 +236,7 @@ def _routes(monkeypatch):
     """Record the device seed functions align_genomes calls."""
     calls = []
     for name in ("device_tubes", "device_tubes_self",
-                 "device_tubes_paneled"):
+                 "device_tubes_paneled", "device_tubes_tables"):
         fn = getattr(tp, name)
         monkeypatch.setattr(tp, name, lambda *a, _f=fn, _n=name, **k:
                             calls.append(_n) or _f(*a, **k))
@@ -253,10 +252,14 @@ def test_self_without_tables_seeds_on_device(g, monkeypatch, no_waves):
 
 
 def test_self_with_tables_seeds_on_host(g, monkeypatch, no_waves):
+    """A self comparison with its GIX table seeds on the device now: it
+    uploads that table (device_tubes_tables) in place of
+    device_tubes_self, with the host seed path's seeds and tubes."""
     calls = _routes(monkeypatch)
     t1 = tgix.build_gix(g.tg1)
     _, stats = tal.align_genomes(g.tg1, g.tg1, t1, t1, device="cpu")
-    assert calls == [] and stats["seed_pipeline"] == "host"
+    assert calls == ["device_tubes_tables"]
+    assert stats["seed_pipeline"] == "device"
     assert (stats["nseeds"], stats["nhits"]) == (g.hseeds.n, g.htubes.n)
 
 

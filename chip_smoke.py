@@ -9,9 +9,9 @@
 Phases (every one runs; any failure exits non-zero before the summary):
 1. environment: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the nvcc build of the five kernels (csrc/*.cu), beside
-   the host seed path's references of phases 10 and 11 in worker
-   processes, which end before phase 2, so that no phase is timed beside
-   them;
+   the host seed path's references of phases 10 and 11 and phase 12's
+   host .gix files in worker processes, which end before phase 2, so that
+   no phase is timed beside them;
 2. each wave kernel against its plain PyTorch version on the card, at the
    main path's widths: wave_chunk at n=512/W=256/G=384 in both directions,
    again on an indel-rich batch whose wide bands overflow W=256, at the
@@ -101,7 +101,33 @@ Phases (every one runs; any failure exits non-zero before the summary):
    kernel launched); then merge_path and fused_scan against their plain
    versions, bit for bit, on the largest input of each column count and
    scan spec these routes gave them, with kernel ms, plain ms and the
-   byte bound.
+   byte bound;
+12. past the caps and the tools: where the JAX package sweeps the chain on
+   the host or declines after upload, the port stays on the card.  On the
+   repeat-rich pair with CHAIN_DEV_CAP below the seeds' bucket (the chain
+   in A-contig panels), and again with CHAIN_DEV_CAP so low that the
+   larger A contigs' seeds pass a chain panel (each swept in a window of
+   its own bucket) and the bucket passes 6 x CHAIN_DEV_CAP: phase 5's
+   TubeBatch from device_tubes inside align_genomes and phase 5's records,
+   the chain's time beside the monolithic chain's; the uniform pair with a
+   poly-A contig in B, whose GIX entries pass its padded bases (the JAX
+   entry cap): build_gix_device equal to build_gix, and align_genomes on
+   the card with phase 4's seeds and records; the uniform pair through the
+   paneled route with 2^20-entry panel buffers (every panel scans again at
+   its entries' bucket): phase 4's seeds and records.  Then the genome,
+   index and annotation tools
+   as `python -m fastga_tpu_torch.cli.<tool>` subprocesses on the
+   repeat-rich FASTAs of phase 9 (repeats in lower case) under
+   fastga_tpu_torch/_build/cli/tools/: fatogdb then gdbtofa give back
+   each contig's sequence and case; gdbstat and gdbshow -h the contig
+   count and bases; gdbshow a range equal to the FASTA's slice; gixmake
+   on the card, then gixshow k-mers equal to the sequence at their
+   position and orientation; gixcp, gixmv and gixrm byte-equal files and
+   none left behind; gixxfer's usage; the repeat intervals as BED through
+   bedtoano and back through anotobed, anostat and anoshow; fastks A.fa
+   B.fa (indices built on the card) printing the histogram of the port's
+   fastks on .gix files of the host build_gix (a worker process of phase
+   1), each tool's wall time logged with the card's line.
 
 The second-to-last line is the per-kernel JSON summary, the last line the
 device summary.
@@ -774,7 +800,8 @@ class SeedCapture:
     each route called with whether it declined and its peak device memory
     (``max_memory_allocated`` above the allocation at its start), the
     TubeBatch and arguments of the route that returned one, the panel
-    counts the paneled route ran at, the chain sweep's A-contig panels,
+    counts the paneled route ran at, the reason of each route that
+    declined, the chain sweep's A-contig panels,
     and each seed pass (``fits``: its expansion's total before a masked or
     -S flip pass drops any seed, the slots ``_expansion_slots`` gave it,
     its seeds and its alive driving rows).  The wrapped calls launch the
@@ -793,6 +820,7 @@ class SeedCapture:
         self.tubes = None
         self.tubes_args = None
         self.routes = []
+        self.reasons = []
         self.mem = {}
         self.panels = []
         self.chain_panels = 0
@@ -826,9 +854,9 @@ class SeedCapture:
                 self.scan[key] = (tuple(values), tuple(flags))
             return orig["fused_scan"](values, spec, flags, reverse)
 
-        def caps_w(N1, N2, P, selfish):
+        def caps_w(N1, N2, P):
             self.panels.append(P)
-            return orig["_panel_caps"](N1, N2, P, selfish)
+            return orig["_panel_caps"](N1, N2, P)
 
         def chain_w(*a):
             self.chain_panels += 1
@@ -858,6 +886,8 @@ class SeedCapture:
                 torch.cuda.synchronize()
                 self.mem[name] = torch.cuda.max_memory_allocated() - base
                 self.routes.append((name, res is not None))
+                if res is None:
+                    self.reasons.append(tp.DECLINE)
                 if res is not None:
                     self.tubes, self.tubes_args = res, (a, k)
                 return res
@@ -2174,12 +2204,18 @@ def host_reference(what, mbp):
 
 
 def start_host_references(mbp):
-    """The host references of phases 10 and 11, started in spawned worker
-    processes while the kernels build."""
+    """The host references of phases 10-12, started in spawned worker
+    processes while the kernels build: one per HOST_REFS entry, and
+    phase 12's host .gix files and their fastks (``host_tool_files``,
+    under "tools")."""
     import multiprocessing
-    pool = multiprocessing.get_context("spawn").Pool(len(HOST_REFS))
-    return pool, {what: pool.apply_async(host_reference, (what, mbp))
-                  for what in HOST_REFS}
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    pool = multiprocessing.get_context("spawn").Pool(len(HOST_REFS) + 1)
+    pending = {what: pool.apply_async(host_reference, (what, mbp))
+               for what in HOST_REFS}
+    pending["tools"] = pool.apply_async(host_tool_files, (mbp, TOOLS_DIR))
+    return pool, pending
 
 
 def join_host_references(pool, pending, t0):
@@ -2190,8 +2226,8 @@ def join_host_references(pool, pending, t0):
     finally:
         pool.terminate()
         pool.join()
-    for what, (_, t_gix, _) in refs.items():
-        log(f"host[{what}]: build_gix {t_gix:.3f} s"
+    for what in HOST_REFS:
+        log(f"host[{what}]: build_gix {refs[what][1]:.3f} s"
             f"{' (with the repeat masks)' if HOST_REFS[what][1] else ''}")
     log(f"host references: {time.perf_counter() - t0:.1f} s from the "
         f"script's start, {len(refs)} worker processes, kernel build "
@@ -2308,6 +2344,428 @@ def phase_masks(gs, refs):
     return launches, kern
 
 
+# -- phase 12: past the device caps; the genome, index and annotation tools --
+
+TOOLS_DIR = os.path.join(CLI_DIR, "tools")
+
+
+@contextlib.contextmanager
+def lowered(**kw):
+    """device_pipeline's names (module constants, ``_panel_caps``,
+    ``_panel_scan``) set to ``kw`` for the enclosed block, as phase 4
+    lowers CHAIN_DEV_CAP."""
+    from fastga_tpu_torch.ops import device_pipeline as tp
+    old = {k: getattr(tp, k) for k in kw}
+    for k, v in kw.items():
+        setattr(tp, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(tp, k, v)
+
+
+class ChainTimer:
+    """The wall seconds of each chain sweep of a run (``_run_chain``, the
+    card synchronised before and after) and the windows of its A-contig
+    panels (``_chain_panel``: the panel's seeds and the window's rows)."""
+
+    def __enter__(self):
+        import torch
+
+        from fastga_tpu_torch.ops import device_pipeline as tp
+        self.chain, self.windows = [], []
+        self._orig = run_chain, panel = tp._run_chain, tp._chain_panel
+
+        def run_w(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_chain(*a)
+            torch.cuda.synchronize()
+            self.chain.append(time.perf_counter() - t0)
+            return res
+
+        def panel_w(*a):
+            self.windows.append((a[4], a[5]))
+            return panel(*a)
+        tp._run_chain, tp._chain_panel = run_w, panel_w
+        return self
+
+    def __exit__(self, *exc):
+        from fastga_tpu_torch.ops import device_pipeline as tp
+        tp._run_chain, tp._chain_panel = self._orig
+
+
+def host_tool_files(mbp, d):
+    """In a worker process: the repeat-rich pair's GDBs and host GIX
+    (build_gix) written as d/host/{A,B}, then the port's fastks on the two
+    .gix files (its main in process: no card).  Returns fastks' stdout
+    and each step's seconds."""
+    from fastga_tpu_torch.cli import fastks
+    from fastga_tpu_torch.io import gdb as gdbm, gix as gixm
+    g1, g2, _, _ = repeat_rich(mbp)
+    os.makedirs(os.path.join(d, "host"), exist_ok=True)
+    times = {}
+    roots = []
+    for tag, g in (("A", g1), ("B", g2)):
+        roots.append(os.path.join(d, "host", tag))
+        t0 = time.perf_counter()
+        table = gixm.build_gix(g)
+        times[f"build_gix {tag}"] = time.perf_counter() - t0
+        g.srcpath = tag + ".fa"
+        gdbm.write_gdb(g, roots[-1])
+        gixm.write_gix(table, roots[-1])
+        del table
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        if fastks.main([r + ".gix" for r in roots], device="cpu") != 0:
+            raise SystemExit("host fastks on the .gix files failed")
+    times["fastks"] = time.perf_counter() - t0
+    return out.getvalue(), times
+
+
+def chain_past_caps(name, gs, rr_ref, run_rr, kw, t_dev):
+    """align_genomes on the repeat-rich pair with device_pipeline's caps
+    set to ``kw``: the chain swept on the card in A-contig panels, where
+    the JAX package sweeps on the host; device_tubes' TubeBatch (inside
+    align_genomes) equal to phase 5's, and phase 5's records."""
+    from fastga_tpu_torch.ops import cuda_build
+    from fastga_tpu_torch.ops import device_pipeline as tp
+    want, ns, pl = rr_ref[0]
+    err = io.StringIO()
+    with lowered(**kw), SeedCapture(inputs=False) as cap, \
+            ChainTimer() as ct, contextlib.redirect_stderr(err):
+        cuda_build.reset_launches()
+        ovls, stats, wall = run_main_path(name, *gs[:2])
+        launches = dict(cuda_build.LAUNCHES)
+        panel = tp.CHAIN_DEV_CAP // 2
+    check_routes(name, cap, [("device_tubes", True)])
+    check_seeds(name, stats, REPEAT_RICH_SEEDS)
+    bad = tube_diff(want, cap.tubes[0])
+    digest = records_digest(ovls)
+    own = [n for n, w in ct.windows if n > panel]
+    if bad or cap.tubes[1:] != (ns, pl) or len(ct.chain) != 1 \
+            or sum(n for n, _ in ct.windows) != ns \
+            or any(w != max(panel, tp._pad_bucket(n))
+                   for n, w in ct.windows) \
+            or digest != run_rr["digest"] or "declined" in err.getvalue() \
+            or (stats["nlive"], stats["cov"]) != REPEAT_RICH_EXPECT:
+        raise SystemExit(f"{name}: windows {ct.windows}, TubeBatch "
+                         f"{bad or 'equal'}, records {stats['nlive']} / "
+                         f"{stats['cov']} (digest {digest == run_rr['digest']})"
+                         f"; stderr {err.getvalue()[-1000:]}")
+    log(f"{name}: chain in {len(ct.windows)} A-contig panels of up to "
+        f"{panel:,} seeds, {len(own)} of them a contig past that in a "
+        f"window of its own bucket ({own}); device_tubes' TubeBatch equal to "
+        f"phase 5's ({want.n:,} tubes, {ns:,} seeds, length sum {pl:,}); "
+        f"{len(ovls):,} records equal to phase 5's; chain {ct.chain[0]:.3f} s "
+        f"against the monolithic chain's {t_dev:.3f} s; align_genomes "
+        f"{wall:.3f} s; launches {json.dumps(launches)}")
+    return launches, own
+
+
+def uniform_past_caps(name, gs, run_u, kw, routes, want=None, scans=None):
+    """align_genomes on the uniform pair ``gs`` with device_pipeline's caps
+    set to ``kw``: seeded on the card by ``routes`` (the single-shot
+    route's decline before upload, then the paneled route), with phase
+    4's records and no decline printed, and phase 4's seeds and tubes or
+    ``want``'s (the host path's TubeBatch and seed count); ``scans`` lists
+    each ``_panel_scan`` call's (cap, entries past it)."""
+    from fastga_tpu_torch.ops import cuda_build
+    err = io.StringIO()
+    with lowered(**kw), SeedCapture(inputs=False) as cap, \
+            contextlib.redirect_stderr(err):
+        cuda_build.reset_launches()
+        ovls, stats, wall = run_main_path(name, *gs)
+        launches = dict(cuda_build.LAUNCHES)
+    check_routes(name, cap, routes)
+    check_seeds(name, stats, UNIFORM_SEEDS if want is None
+                else (want[1], want[0].n))
+    bad = want is not None and tube_diff(want[0], cap.tubes[0])
+    if bad or records_digest(ovls) != run_u["digest"] \
+            or (stats["nlive"], stats["cov"]) != UNIFORM_EXPECT \
+            or "declined" in err.getvalue():
+        raise SystemExit(f"{name}: TubeBatch {bad or 'equal'}, records "
+                         f"{stats['nlive']} / {stats['cov']}; stderr "
+                         f"{err.getvalue()[-1000:]}")
+    log(f"{name}: seeded on the card ({stats['nseeds']:,} seeds, "
+        f"{stats['nhits']} tubes"
+        + (", the host path's TubeBatch" if want is not None else "")
+        + f"); {len(ovls)} records equal to phase 4's; "
+        f"align_genomes {wall:.3f} s; launches {json.dumps(launches)}"
+        + (f"; panel scans (cap, entries past it) {scans}"
+           if scans is not None else ""))
+    return launches
+
+
+def phase_past_caps(gs_rr, rr_ref, run_rr, run_u):
+    """Phase 12 (a): past the caps after upload where the JAX package
+    sweeps on the host or declines, the port stays on the card, at full
+    size."""
+    import torch
+
+    from fastga_tpu_torch.io.gix import build_gix
+    from fastga_tpu_torch.ops import chain as chainm, merge as mergem
+    from fastga_tpu_torch.ops import device_pipeline as tp
+    from fastga_tpu_torch.utils import synth
+    t0 = time.perf_counter()
+    args, kwargs = rr_ref[1]
+    with ChainTimer() as ct:
+        got = tp.device_tubes(*args, **kwargs)
+    if tube_diff(rr_ref[0][0], got[0]) or ct.windows:
+        raise SystemExit("past caps: device_tubes at the default caps "
+                         "differs from phase 5's")
+    t_dev = ct.chain[0]
+    bucket = tp._pad_bucket(REPEAT_RICH_SEEDS[0])
+    launches = {}
+    launches["paneled chain"], _ = chain_past_caps(
+        "chain (CHAIN_DEV_CAP below the bucket)", gs_rr, rr_ref, run_rr,
+        dict(CHAIN_DEV_CAP=bucket - 1), t_dev)
+    # a chain panel (CHAIN_DEV_CAP // 2) below the mean seeds of an A
+    # contig: the larger contigs' seeds pass it, and the seeds' bucket
+    # passes 6 x CHAIN_DEV_CAP (both where the JAX package sweeps on the
+    # host)
+    per = REPEAT_RICH_SEEDS[0] // gs_rr[0].ncontig
+    launches["contig windows"], own = chain_past_caps(
+        "chain (contigs past a chain panel)", gs_rr, rr_ref, run_rr,
+        dict(CHAIN_DEV_CAP=2 * per - 2), t_dev)
+    if not own or bucket <= 6 * (2 * per - 2):
+        raise SystemExit(f"past caps: no contig past a panel ({own})")
+    # the uniform pair's B genome with a poly-A contig up to the bucket
+    # past a quarter more bases: two entries a base there, so its GIX
+    # entries pass its padded bases N (the JAX package's entry cap); the
+    # poly-A contig adds a tube but no record, so the records stay phase
+    # 4's, and the tubes are the host path's
+    rng = np.random.default_rng(0xBE7C4)
+    pair = synth.uniform_pair(rng, 192, 50_000)
+    tot = sum(map(len, pair["B"]))
+    polya = np.zeros(tp._pad_bucket(tot + tot // 4) - tot, np.uint8)
+    gs = (synth.to_gdb("a", pair["A"])[0],
+          synth.to_gdb("b", pair["B"] + [polya])[0])
+    del pair
+    t1 = time.perf_counter()
+    host = build_gix(gs[1])
+    t_host = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tab = tp.build_gix_device(gs[1], "cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    N = tp._pad_bucket(int(gs[1].contig_lengths().sum()))
+    bad = [f for f in ("kbytes", "post", "cont", "comp", "lcp", "maskb",
+                       "prefix_index", "perm", "post_bytes", "cont_bytes",
+                       "freq", "seqtot")
+           if not np.array_equal(np.asarray(getattr(tab, f)),
+                                 np.asarray(getattr(host, f)))]
+    if bad or tab.n <= N:
+        raise SystemExit(f"past caps: build_gix_device with {tab.n} entries "
+                         f"(N {N}) differs from build_gix ({bad})")
+    log(f"past caps: B with a {len(polya):,}-base poly-A contig: "
+        f"build_gix_device {tab.n:,} entries past N = {N:,} in {dt:.3f} s, "
+        f"equal to the host build_gix ({t_host:.3f} s) field by field")
+    t1 = time.perf_counter()
+    seeds = mergem.adaptamer_seeds(build_gix(gs[0]), host, freq=10)
+    want = (chainm.chain_tubes(seeds, int(gs[0].contig_lengths().max()),
+                               int(gs[1].contig_lengths().max()),
+                               alens_of(gs[0])), seeds.n)
+    log(f"past caps: the host path's TubeBatch ({want[0].n} tubes, "
+        f"{want[1]:,} seeds) {time.perf_counter() - t1:.3f} s")
+    del host, tab, seeds
+    launches["entries"] = uniform_past_caps(
+        "GIX entries past N", gs, run_u, {}, [("device_tubes", True)], want)
+    gs = uniform_gdbs()     # new GDBs: no cached device tables
+    scans = []
+    scan = tp._panel_scan
+
+    def scan_w(*a):
+        T, over = scan(*a)
+        scans.append((a[2], int(over)))
+        return T, over
+    launches["panel rescans"] = uniform_past_caps(
+        "panel buffers of 2^20 entries", gs, run_u,
+        dict(_MAX_DEV_BASES=1 << 20, _panel_caps=lambda *a: (1 << 20,) * 2,
+             _panel_scan=scan_w),
+        [("device_tubes", False), ("device_tubes_paneled", True)],
+        scans=scans)
+    if not scans or not all(o for _, o in scans[::2]) \
+            or any(o for _, o in scans[1::2]):
+        raise SystemExit(f"past caps: panel scans {scans}")
+    log(f"past caps: phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def run_tool(tool, args, cwd, rc=0):
+    """``python -m fastga_tpu_torch.cli.<tool> args`` in ``cwd``: (stdout,
+    stderr, wall s); another exit status than ``rc`` fails."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", f"fastga_tpu_torch.cli.{tool}",
+                        *args], cwd=cwd, env=env, capture_output=True,
+                       text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if p.returncode != rc or "Traceback" in p.stderr:
+        raise SystemExit(f"tools: {tool} {' '.join(args)} exited "
+                         f"{p.returncode}: {p.stderr[-2000:]}")
+    return p.stdout, p.stderr, wall
+
+
+def fasta_records(path):
+    """{header: sequence} of a FASTA file, case kept."""
+    with open(path, "rb") as f:
+        text = f.read()
+    out = {}
+    for rec in text.split(b">")[1:]:
+        head, _, body = rec.partition(b"\n")
+        out[head.decode()] = body.replace(b"\n", b"")
+    return out
+
+
+def phase_tools(gs_rr, host_tools):
+    """Phase 12 (b): the genome, index and annotation tools as `python -m`
+    subprocesses at full size, on the repeat-rich pair (its FASTAs with
+    the repeats in lower case, from phase 9) and its repeat intervals as
+    BED."""
+    from fastga_tpu_torch.io import gix as gixm
+    from fastga_tpu_torch.ops.constants import KMER
+    from fastga_tpu_torch.utils import dna
+    t0 = time.perf_counter()
+    g1, g2, iv1, _ = gs_rr
+    d = TOOLS_DIR
+    walls = {}
+
+    def tool(name, args, rc=0, cwd=d):
+        out, err, walls[name] = run_tool(name.split()[0], args, cwd, rc)
+        return out, err
+
+    src = os.path.join(CLI_DIR, "run", "repeatrich_{}lc.fa")
+    for tag in "AB":
+        shutil.copy(src.format(tag), os.path.join(d, tag + ".fa"))
+    for tag, g in (("A", g1), ("B", g2)):
+        tool(f"fatogdb {tag}", [tag + ".fa"])
+    # fatogdb, then gdbtofa with the case mask: the FASTA's sequence and
+    # case, contig for contig
+    out, _ = tool("gdbtofa", ["#A.1ano", "A", "Aback.fa"])
+    want = fasta_records(os.path.join(d, "A.fa"))
+    back = fasta_records(os.path.join(d, "Aback.fa"))
+    if back != want:
+        raise SystemExit(f"tools: gdbtofa gives {len(back)} records, "
+                         f"{sum(a == b for a, b in zip(back.values(), want.values()))}"
+                         f" of {len(want)} equal to the input's")
+    nbases = sum(len(v) for v in want.values())
+    lower = sum(int((np.frombuffer(v, np.uint8) >= 97).sum())
+                for v in want.values())
+    out, _ = tool("gdbstat", ["A"])
+    m = re.search(r"([\d,]+) contigs containing ([\d,]+)bp", out)
+    if not m or (int(m[1].replace(",", "")),
+                 int(m[2].replace(",", ""))) != (g1.ncontig, g1.seqtot):
+        raise SystemExit(f"tools: gdbstat says {m and m.group(0)}; the "
+                         f"genome has {g1.ncontig} contigs, {g1.seqtot} bp")
+    out, _ = tool("gdbshow -h", ["-h", "A"])
+    spans = re.findall(r":: Contig \d+ <0,(\d+)>", out)
+    if len(spans) != g1.ncontig or sum(map(int, spans)) != g1.seqtot:
+        raise SystemExit(f"tools: gdbshow -h lists {len(spans)} contigs")
+    # 500 bases from the middle of scaffold 3 (gdbshow prints lower case)
+    sc = g1.scaffolds[2]
+    b = sc.slen // 2
+    out, _ = tool("gdbshow range", ["A", f"@3:{b}-{b + 500}"])
+    got = "".join(out.splitlines()[1:])
+    if got != want[sc.header][b:b + 500].decode().lower():
+        raise SystemExit(f"tools: gdbshow @3:{b}-{b + 500} differs from "
+                         f"the FASTA's slice")
+    # gixmake on the card, then gixshow at a spread of addresses
+    for tag in "AB":
+        tool(f"gixmake {tag}", [tag])
+    seqs = [g1.get_contig(i) for i in range(g1.ncontig)]
+    with gixm.KmerStream(os.path.join(d, "A")) as ks:
+        n = ks.nels
+    nshown = 0
+    # entry ranges, then DNA prefixes (9 and 6 bases) of k-mers they showed
+    addrs = ["0-3"] + [f"{i}-{i + 3}" for i in (n // 3, 2 * n // 3, n - 4)]
+    for addr in addrs:
+        out, _ = tool(f"gixshow {addr}", ["A", addr])
+        lines = out.splitlines()[1:]
+        if not lines:
+            raise SystemExit(f"tools: gixshow {addr} shows no k-mer")
+        if addr == addrs[1]:
+            addrs += [lines[0].split()[1][:9], lines[-1].split()[1][:6]]
+        for ln in lines:
+            f = ln.split()
+            kmer, ctg, post = f[1], int(f[5]), int(f[7])
+            s = seqs[ctg]
+            k = (dna.revcomp(s[post - KMER:post]) if f[4] == "-"
+                 else s[post:post + KMER])
+            if dna.to_ascii(k).decode() != kmer:
+                raise SystemExit(f"tools: gixshow {addr}: {ln!r} is not "
+                                 f"the sequence at its position")
+            if not addr[0].isdigit() and not kmer.startswith(addr):
+                raise SystemExit(f"tools: gixshow {addr}: {ln!r}")
+            nshown += 1
+
+    # gixcp, gixmv and gixrm: byte-equal files where each should be
+    def ensemble(root):
+        base = os.path.basename(root)
+        return {n: open(os.path.join(d, n), "rb").read()
+                for n in sorted(os.listdir(d))
+                if n == base + ".gix" or n.startswith(f".{base}.ktab.")}
+    a = ensemble("A")
+    tool("gixcp", ["-n", "A", "C"])
+    c = ensemble("C")
+    tool("gixmv", ["-n", "C", "D"])
+    dd = ensemble("D")
+    tool("gixrm", ["-f", "D"])
+    ren = {k.replace("A", "{}", 1): v for k, v in a.items()}
+    if len(a) < 2 or ensemble("A") != a or ensemble("C") or ensemble("D") \
+            or {k.replace("C", "{}", 1): v for k, v in c.items()} != ren \
+            or {k.replace("D", "{}", 1): v for k, v in dd.items()} != ren:
+        raise SystemExit("tools: gixcp / gixmv / gixrm left other files")
+    _, err = tool("gixxfer", [], rc=1)
+    if "gixcp" not in err or "gixmv" not in err:
+        raise SystemExit(f"tools: gixxfer's usage: {err}")
+    # the repeat intervals as BED, through bedtoano and back
+    bed = "".join(f"{g1.scaffolds[m.contig].header}\t{m.beg}\t{m.end}\t\t0"
+                  f"\t+\n" for m in sorted(iv1, key=lambda m: (m.contig,
+                                                              m.beg)))
+    with open(os.path.join(d, "rep.bed"), "w") as f:
+        f.write(bed)
+    tool("bedtoano", ["rep.bed", "A"])
+    out, _ = tool("anotobed", ["rep.1ano"])
+    if "".join(ln + "\n" for ln in out.splitlines()
+               if not ln.startswith("#")) != bed:
+        raise SystemExit("tools: bedtoano then anotobed differs from the "
+                         "BED")
+    out, _ = tool("anostat", ["rep.1ano"])
+    m = re.search(r"There are ([\d,]+) ", out)
+    if not m or int(m[1].replace(",", "")) != len(iv1):
+        raise SystemExit(f"tools: anostat: {out[:300]}")
+    out, _ = tool("anoshow", ["rep.1ano"])
+    if sum(ln.startswith("[") for ln in out.splitlines()) != len(iv1):
+        raise SystemExit("tools: anoshow does not list every interval")
+    # fastks on the two FASTAs (indices built on the card) against fastks
+    # on .gix files of the host build_gix (computed in a worker process)
+    ks = os.path.join(d, "ks")
+    os.makedirs(ks)
+    for tag in "AB":
+        shutil.copy(os.path.join(d, tag + ".fa"), ks)
+    out, _ = tool("fastks", ["A.fa", "B.fa"], cwd=ks)
+    host_out, host_times = host_tools
+    if out != host_out or len(out.splitlines()) != KMER + 1:
+        raise SystemExit(f"tools: fastks A.fa B.fa differs from fastks on "
+                         f"the host build's .gix files:\n{out}\n{host_out}")
+    log(f"tools: fastks histogram (the same on the host .gix files; host "
+        f"{', '.join(f'{k} {v:.3f} s' for k, v in host_times.items())}, "
+        f"in a worker process):\n" + out.rstrip())
+    log(f"tools: {len(want)} contigs, {nbases:,} bases ({lower:,} in lower "
+        f"case) back from gdbtofa; gdbstat and gdbshow -h {g1.ncontig} "
+        f"contigs, {g1.seqtot:,} bp; {nshown} gixshow k-mers equal to the "
+        f"sequence; gixcp / gixmv / gixrm byte-equal; {len(iv1):,} "
+        f"intervals through bedtoano, anotobed, anostat and anoshow")
+    smi = smi_line()
+    for name, w in walls.items():
+        log(f"  wall[{name}]: {w:.3f} s ({smi})")
+    log(f"tools: phase {time.perf_counter() - t0:.1f} s")
+
+
 def _params(**kw):
     from fastga_tpu_torch.models import aligner
     return aligner.FastGAParams(**kw)
@@ -2375,11 +2833,17 @@ def main(argv):
     done(9)
     launches_s, launches_b, _ = phase_seed_routes(
         gs_rr[0], rr_ref, u_ref, refs.pop("self"))
-    del rr_ref, u_ref
+    del u_ref
     done(10)
+    host_tools = refs.pop("tools")
     launches_m, _ = phase_masks(gs_rr, refs)
-    del gs_rr, refs
+    del refs
     done(11)
+    launches_c = phase_past_caps(gs_rr, rr_ref, run_rr, run_u)
+    del rr_ref
+    phase_tools(gs_rr, host_tools)
+    del gs_rr
+    done(12)
 
     summary = []
     for name, src, rep in (
@@ -2405,6 +2869,11 @@ def main(argv):
             f"{n} {launches[n]} / {launches_rr[n]} / {launches_s[n]} / "
             f"{launches_b[n]} / {launches_m['-M'][n]} / "
             f"{launches_m['-S'][n]}" for n in KERNELS))
+    log("launches past the caps (chain panels / contig windows; GIX "
+        "entries past N / panel rescans): "
+        + ", ".join(f"{n} " + " / ".join(str(launches_c[c].get(n, 0))
+                                         for c in launches_c)
+                    for n in KERNELS))
     for row in summary:
         if not row["equal"] or row["launches"] <= 0 or row["ms"] is None:
             raise SystemExit(f"kernel row incomplete: {row}")

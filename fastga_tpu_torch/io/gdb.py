@@ -338,3 +338,58 @@ def read_gdb(path) -> GDB:
         gdb.scaffolds[cur_scaf].ectg = gdb.ncontig
     r.close()
     return gdb
+
+
+def gdb_to_fasta(gdb: GDB, out_path, width: int = 80,
+                 masks: Optional[List[MaskIval]] = None):
+    """GDB -> FASTA (GDBtoFA equivalent). Gaps re-emitted as N runs.
+    Without ``masks`` output is all lower-case; with them it is upper-case
+    except masked intervals (GDBtoFA.c:209-212 UPPER selection).
+    ``out_path`` None streams to stdout; a .gz suffix gzip-compresses."""
+    import contextlib
+    import gzip
+    import sys
+
+    if out_path is None:
+        # fall back to the text stream when stdout is redirected to an
+        # in-memory buffer (tests)
+        class _B:
+            def write(self, b):
+                sys.stdout.write(b.decode())
+
+            def close(self):
+                pass
+
+        ctx = contextlib.nullcontext(getattr(sys.stdout, "buffer", _B()))
+    elif str(out_path).endswith(".gz"):
+        ctx = gzip.open(out_path, "wb")
+    else:
+        ctx = open(out_path, "wb")
+    upper = masks is not None
+    gapch = ord("N") if upper else ord("n")
+    table = dna.CODE_TO_UPPER if upper else dna.CODE_TO_LOWER
+    mask_by_ctg = {}
+    if masks:
+        for m in masks:
+            mask_by_ctg.setdefault(m.contig, []).append((m.beg, m.end))
+    with ctx as f:
+        for s in gdb.scaffolds:
+            f.write(b">" + s.header.encode() + b"\n")
+            parts = []
+            spos = 0
+            for ci in range(s.fctg, s.ectg):
+                c = gdb.contigs[ci]
+                if c.sbeg > spos:
+                    parts.append(np.full(c.sbeg - spos, gapch, dtype=np.uint8))
+                codes = gdb.get_contig(ci)
+                ascii_seq = table[codes].copy()
+                for b, e in mask_by_ctg.get(ci, []):
+                    ascii_seq[b:e] += 32  # lower-case
+                parts.append(ascii_seq)
+                spos = c.sbeg + c.clen
+            if s.slen > spos:
+                parts.append(np.full(s.slen - spos, gapch, dtype=np.uint8))
+            seq = np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+            for i in range(0, len(seq), width):
+                f.write(seq[i : i + width].tobytes())
+                f.write(b"\n")

@@ -96,9 +96,10 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
     ``symmetric``.  An input the device routes decline before uploading
     anything (a cap of the JAX package, e.g. ``freq`` above 10, or a -S
     pair past 96 Mi bases) is printed on stderr with the last reason and
-    seeded on the host, as is every run of ``engine="ref"``; an error or a
-    cap exceeded on the device raises.  ``stats["seed_pipeline"]`` says
-    which ran, and ``verbose`` prints it on stderr."""
+    seeded on the host, as is every run of ``engine="ref"``; once a route
+    has uploaded, it finishes on the device, and an error there raises.
+    ``stats["seed_pipeline"]`` says which ran, and ``verbose`` prints it
+    on stderr."""
     if engine not in ("ref", "torch"):
         raise ValueError(f"unknown wave engine '{engine}' "
                          f"(expected 'ref' or 'torch')")

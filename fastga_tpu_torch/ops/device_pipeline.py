@@ -22,24 +22,34 @@ the device and chained once.  Only the tube arrays come back to the host;
 the counts are the only other host syncs.
 
 Semantics are those of the host path (ops/merge.py, ops/chain.py): the same
-TubeBatch, seed count and seed-length sum.  Caps are the JAX package's, but
-for the seed slots.  The checks that need nothing on the device (total
-bases, table entries, contig count, field widths, freq) decline with the
-JAX package's reasons: the function returns None and sets ``DECLINE``, and
-the caller tries the next route.  A cap exceeded once the tables are on the
-device raises RuntimeError (GIX entries, alive driving rows, tubes, a chain
-past its panels, more than PANEL_MAX kmer panels): the work never moves
-back to the host.  A seed expansion takes its own total's bucket of slots,
-read once before it allocates (``_expansion_slots``; a masked or -S pass's
-total counts the seeds it drops after the expansion), where the JAX package
-takes static slots (N1, 2 * E1, twice a table's rows) and declines past
-them.  Where the JAX package declines after upload, the port reruns on the
-device instead: a kmer panel past its own caps at twice the panels; the
-paneled global seed buffer grown to its seeds.  The -S flip pass's alive
-rows are its driver's rows (the JAX package declines past N2 // 2):
-nothing is sized by them, so they have no cap.  The XLA sorts of the JAX
-pipeline are ``torch.sort`` here; its one-key sort that compacts the kept
-seeds of a masked or -S pass is a stable compaction (``_compact``).
+TubeBatch, seed count and seed-length sum.  The checks that need nothing on
+the device (total bases, table entries, contig count, field widths, freq)
+are the JAX package's and decline before any upload with its reasons: the
+function returns None and sets ``DECLINE``, and the caller tries the next
+route.  Once the tables are on the device every size follows the device's
+own counts, so a run that starts there ends there; an error on the card,
+out of memory included, reaches the caller.  Where the JAX package has a
+static cap after upload, the port sizes to the count instead and gives the
+same records:
+- a genome's GIX table keeps all its entries (the JAX package declines past
+  max(4096, N));
+- a seed expansion takes its own total's bucket of slots, read once before
+  it allocates (``_expansion_slots``; a masked or -S pass's total counts
+  the seeds it drops after the expansion), where the JAX package takes
+  static slots (N1, 2 * E1, twice a table's rows) and declines past them;
+  alive driving rows size nothing, so they have no cap;
+- the chain sweep emits every tube it counts (the JAX package truncates to
+  a tube cap and declines);
+- past CHAIN_DEV_CAP seeds the chain sweeps A-contig ranges of the
+  acont-sorted seeds one at a time, and a contig with more seeds than a
+  range takes a window of its own seeds' bucket (the JAX package sweeps
+  on the host past a paneled cap or such a contig);
+- a kmer panel whose entries pass its buffer rescans at their bucket, and
+  the paneled global seed buffer grows to its seeds (the JAX package
+  doubles the panels up to a limit, then declines).
+The XLA sorts of the JAX pipeline are ``torch.sort`` here; its one-key
+sort that compacts the kept seeds of a masked or -S pass is a stable
+compaction (``_compact``).
 
 ``build_gix_device`` is the index build of ``gixmake`` and the command
 line: ``gix_arrays`` of one genome, of which only the finished entry rows
@@ -76,9 +86,9 @@ MAX_FREQ = 10             # device freq cap (window-min packing: 6+3
                           # six-bit values per value word); higher -f
                           # takes the host merge
 
-# Why the last device_tubes call declined (returned None); the aligner
-# prints it on stderr and records it in stats, so cap-based host seeding is
-# never silent.
+# Why the last device_tubes call declined (returned None, before any
+# upload); the aligner prints it on stderr and records it in stats, so
+# cap-based host seeding is never silent.
 DECLINE = None
 
 
@@ -86,11 +96,6 @@ def _decline(reason):
     global DECLINE
     DECLINE = reason
     return None
-
-
-def _over_cap(reason):
-    """A cap exceeded after the tables are on the device: fail the run."""
-    raise RuntimeError(f"device seed pipeline: {reason}")
 
 
 def _roll(x, s):
@@ -209,7 +214,7 @@ def driver_candidates(bps, coff, clen, invp, ncontig):
             None, ok.sum(), ok.to(torch.int32))
 
 
-def gix_arrays(bps, coff, clen, invp, ncontig, ecap: int = 0):
+def gix_arrays(bps, coff, clen, invp, ncontig):
     """Sorted GIX entry arrays of one genome.
 
     bps: uint8 [Npad/4] 2-bit packed bases (base i at bit 2*(i%4));
@@ -217,8 +222,9 @@ def gix_arrays(bps, coff, clen, invp, ncontig, ecap: int = 0):
     invp: int32 [Cpad] contig -> length-rank; ncontig: contig count.
 
     Returns (w0, w1, w2, cont, post, comp, lcp, nentries, valid): entries
-    sorted by (kmer, cont, post, comp), padded to the position cap with
-    all-ones keys; w0/w1 = kmer bits 79..16, w2 = bits 15..0 << 16."""
+    sorted by (kmer, cont, post, comp) in 2 * Npad rows (both orientations
+    of every position), padded with all-ones keys; w0/w1 = kmer bits
+    79..16, w2 = bits 15..0 << 16."""
     (okflat, w0a, w1a, w2a, conta, posta, compa), N = \
         _genome_candidates(bps, coff, clen, invp, ncontig)
     # two packed int64 keys carry all entry data; payloads come back from
@@ -229,11 +235,7 @@ def gix_arrays(bps, coff, clen, invp, ncontig, ecap: int = 0):
     nent = okflat.sum()
     vs = (torch.arange(2 * N, device=bps.device) < nent).to(torch.int32)
     lcp = adjacent_lcp(w0s, w1s, w2s)
-    out = (w0s, w1s, w2s, cs, ps, os_, lcp)
-    if ecap and ecap < 2 * N:
-        out = tuple(x[:ecap] for x in out)
-        vs = vs[:ecap]
-    return out + (nent, vs)
+    return (w0s, w1s, w2s, cs, ps, os_, lcp, nent, vs)
 
 
 def pack_entry_keys(ok, w0a, w1a, w2a, conta, posta, compa):
@@ -701,13 +703,13 @@ _POFF = 1 << 25      # pairing field offset (pairing >= -1)
 
 
 def chain_tubes_dev(seeds, ns, amax: int, bmax: int, alens_by_rank,
-                    tcap: int, chain_break: int = 2000,
-                    chain_min: int = 170):
+                    chain_break: int = 2000, chain_min: int = 170):
     """Bucket-pair chain sweep (port of ops/chain.chain_tubes).  ``seeds``
-    = (plen, acont, apost, bcont, bpost, bcomp) tensors of length NS
-    (valid rows < ns); ``alens_by_rank`` an int32 tensor.  Returns tube
-    arrays capped at tcap rows (acont, bcont, comp, dgmin, dgmax, alow,
-    ahgh, pairing, cov) and the tube count, in host emission order."""
+    = (plen, acont, apost, bcont, bpost, bcomp) tensors of length NS < 2^30
+    (valid rows < ns); ``alens_by_rank`` an int32 tensor.  Returns the tube
+    arrays (acont, bcont, comp, dgmin, dgmax, alow, ahgh, pairing, cov),
+    one row a tube in host emission order, and the tube count (read once
+    on the host to size them)."""
     plen, acont, apost, bcont, bpost, bcomp = seeds
     dev = plen.device
     NS = plen.shape[0]
@@ -733,10 +735,11 @@ def chain_tubes_dev(seeds, ns, amax: int, bmax: int, alens_by_rank,
     # (dbuck-1, tag 1).  The upper copy's keys are exact monotone transforms
     # of the lower copy's, so ONE sort of NS rows and a merge of the two
     # derived sorted streams equal the 2NS-row sort (keys are unique through
-    # the seed-index tie-break).
+    # the seed-index tie-break).  k2 = anti (30 bits) | tag (bit 32) | the
+    # row's index (the upper copy's is NS + sidx < 2^32).
     k1l = ((acont.to(i64) << 39) | (bcont.to(i64) << 27)
            | (bcf.to(i64) << 26) | (dbuck.to(i64) + _POFF))
-    k2l = (anti.to(i64) << 28) | sidx.to(i64)
+    k2l = (anti.to(i64) << 33) | sidx.to(i64)
     vBl = (drem.to(i64) << 8) | lcp2.to(i64)
     k1l = torch.where(svalid, k1l, I64MAX)
     k2l = torch.where(svalid, k2l, I64MAX)
@@ -745,13 +748,13 @@ def chain_tubes_dev(seeds, ns, amax: int, bmax: int, alens_by_rank,
     k1ls, k2ls, vBls = k1l[o], k2l[o], vBl[o]
     lvalid = k1ls != I64MAX
     k1u = torch.where(lvalid, k1ls - 1, I64MAX)
-    k2u = torch.where(lvalid, k2ls + ((1 << 27) + NS), I64MAX)
+    k2u = torch.where(lvalid, k2ls + ((1 << 32) + NS), I64MAX)
     vBu = vBls + (BUCK_WIDTH << 8)
     k1s, k2s, vBs = merge_sorted_streams((k1ls, k2ls, vBls), (k1u, k2u, vBu))
 
     valid = k1s != I64MAX
-    aa = torch.where(valid, k2s >> 28, 0).to(i32)
-    tag = ((k2s >> 27) & 1).to(i32)
+    aa = torch.where(valid, k2s >> 33, 0).to(i32)
+    tag = ((k2s >> 32) & 1).to(i32)
     dg = ((vBs >> 8) & 0xFF).to(i32)
     ll = (vBs & 0xFF).to(i32)
 
@@ -877,7 +880,7 @@ def chain_tubes_dev(seeds, ns, amax: int, bmax: int, alens_by_rank,
     keep = (ch_valid & (cov >= chain_min)
             & (~(ch_mix_l & ~ch_mix_u) | ch_new) & ch_end)
 
-    # compact the kept chains (in chain order) to tcap; tuples packed
+    # compact the kept chains (in chain order) to the front; tuples packed
     c1 = ((ch_ga.to(i64) << 39) | (ch_gb.to(i64) << 27)
           | (ch_gc.to(i64) << 26) | (ch_pair.to(i64) + _POFF))
     c2 = ((ch_alow.to(i64) << 15) | (ch_dgmax.to(i64) << 7)
@@ -886,11 +889,9 @@ def chain_tubes_dev(seeds, ns, amax: int, bmax: int, alens_by_rank,
     # scheduler's wave-count predictor
     c3 = (cov.to(i64) << 31) | ch_ahgh.to(i64)
     kk = ((~keep).to(i64) << 58) | ridx.to(i64)
-    o = torch.sort(kk).indices[:tcap]
-    c1o = torch.where(keep, c1, 0)[o]
-    c2o = torch.where(keep, c2, 0)[o]
-    c3o = torch.where(keep, c3, 0)[o]
     ntubes = keep.sum()
+    o = torch.sort(kk).indices[:int(ntubes)]
+    c1o, c2o, c3o = c1[o], c2[o], c3[o]
 
     o_ga = ((c1o >> 39) & (MAX_CONT - 1)).to(i32)
     o_gb = ((c1o >> 27) & (MAX_CONT - 1)).to(i32)
@@ -902,7 +903,7 @@ def chain_tubes_dev(seeds, ns, amax: int, bmax: int, alens_by_rank,
     o_cov = (c3o >> 31).to(i32)
     o_ahgh = (c3o & ((1 << 31) - 1)).to(i32)
 
-    # contig-coordinate conversion (a tcap-sized gather of the small table)
+    # contig-coordinate conversion (a gather of the small table a tube)
     alen = alens_by_rank[o_ga.clamp(0, alens_by_rank.shape[0] - 1).to(i64)]
     dgmin = o_dgmin + (o_pair << BUCK_SHIFT)
     dgmax = o_dgmax + (o_pair << BUCK_SHIFT)
@@ -919,18 +920,11 @@ def chain_tubes_dev(seeds, ns, amax: int, bmax: int, alens_by_rank,
 # Wrapper: GDB pair -> TubeBatch (None with DECLINE set before any upload)
 # ---------------------------------------------------------------------------
 
-# The JAX package's caps, sized for a 16 GB device and kept as they are so
-# that both packages decline the same inputs.
+# The JAX package's sizes, set for a 16 GB device and kept as they are so
+# that both packages take the same routes.
 _MAX_DEV_BASES = (1 << 26) + (1 << 25)   # single-shot bases per genome
 _CACHE_MAX_N = 1 << 25                   # largest padded genome cached
 CHAIN_DEV_CAP = 3 << 23                  # largest monolithic seed bucket
-CHAIN_PANEL_MAX = CHAIN_DEV_CAP * 6      # largest paneled seed bucket
-
-
-def _tcap_for(nscap: int, tcap: int) -> int:
-    """Tube-output cap scaled to the seed cap (tcap only sizes the output
-    compaction, so a generous cap is nearly free)."""
-    return min(max(int(tcap), _pad_bucket(nscap // 96)), 1 << 22)
 
 
 def _pad_bucket(n: int) -> int:
@@ -1004,17 +998,12 @@ def _dev_cache(gdb, N, device):
 
 def _full_table(cache, gdb, lens, N, device):
     """One genome's sorted two-orientation GIX table (cached per GDB),
-    trimmed to its entries' bucket; raises past the entry cap
-    max(4096, N)."""
+    trimmed to its entries' bucket."""
     T = cache.get(("tab", N))
     if T is None:
         bps, coff, clen, invp, nc, _ = _prep_genome(gdb, lens, device)
-        Ef = max(1 << 12, N)
-        Tf = gix_arrays(bps, coff, clen, invp, nc, ecap=Ef)
-        ne = int(Tf[7])
-        if ne > Ef:
-            _over_cap("GIX entry cap exceeded")
-        Et = min(_pad_bucket(ne), Ef)
+        Tf = gix_arrays(bps, coff, clen, invp, nc)
+        Et = min(_pad_bucket(int(Tf[7])), 2 * N)
         T = tuple(x[:Et] for x in Tf[:7]) + (Tf[7], Tf[8][:Et])
         cache[("tab", N)] = T
     return T
@@ -1022,8 +1011,8 @@ def _full_table(cache, gdb, lens, N, device):
 
 def _seedsort(pl, ac, ap, bcn, bp, bo, ns, Cpad):
     """Stable acont-major sort of the seed stream (payload packed into two
-    value words), padded by one panel, and the per-contig panel
-    boundaries."""
+    value words) and the per-contig boundaries; rows past ``ns`` sort
+    last with all-ones keys."""
     NS = pl.shape[0]
     dev = pl.device
     idx = torch.arange(NS, dtype=torch.int64, device=dev)
@@ -1037,17 +1026,15 @@ def _seedsort(pl, ac, ap, bcn, bp, bo, ns, Cpad):
     achi = torch.where(ks == I64MAX, MAX_CONT, ks >> 34)
     bounds = torch.searchsorted(
         achi, torch.arange(Cpad + 1, dtype=torch.int64, device=dev))
-    # one panel of tail padding, so every panel window has its full size
-    zpad = torch.zeros(CHAIN_DEV_CAP, dtype=torch.int64, device=dev)
-    return (torch.cat([ks, zpad + I64MAX]),
-            torch.cat([torch.where(valid, v1, 0)[o], zpad]),
-            torch.cat([torch.where(valid, v2, 0)[o], zpad]), bounds)
+    return (ks, torch.where(valid, v1, 0)[o], torch.where(valid, v2, 0)[o],
+            bounds)
 
 
-def _chain_panel(k, v1, v2, off, npan, CAP, amax, bmax, alens, tcap,
+def _chain_panel(k, v1, v2, off, npan, CAP, amax, bmax, alens,
                  chain_break, chain_min):
     """Chain sweep over one acont-contiguous panel of the sorted packed
-    seed stream."""
+    seed stream: a window of CAP rows from ``off`` (fewer at the stream's
+    end), its first ``npan`` rows the panel's."""
     ks, v1s, v2s = (x[off:off + CAP] for x in (k, v1, v2))
     seeds = ((v1s >> 56).to(torch.int32),
              ((ks >> 34) & (MAX_CONT - 1)).to(torch.int32),
@@ -1055,28 +1042,28 @@ def _chain_panel(k, v1, v2, off, npan, CAP, amax, bmax, alens, tcap,
              (v2s >> 1).to(torch.int32),
              (v1s & (MAX_POST - 1)).to(torch.int32),
              (v2s & 1).to(torch.int32))
-    return chain_tubes_dev(seeds, npan, amax, bmax, alens, tcap,
-                           chain_break, chain_min)
+    return chain_tubes_dev(seeds, npan, amax, bmax, alens, chain_break,
+                           chain_min)
 
 
 def _numpy(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _run_chain_paneled(seeds6, ns_host, tcap, chain_break, chain_min, amax,
-                       bmax, alens_pad):
+def _run_chain_paneled(seeds6, ns_host, chain_break, chain_min, amax, bmax,
+                       alens_pad):
     """Device chain sweep past the monolithic cap: one stable acont-major
     sort, then sweeps over contiguous A-contig ranges (chains never cross an
     A-contig and the sweep's primary key is the A-contig, so the panels'
-    concatenation is the monolithic sweep's output).  Returns host tube
-    arrays and the tube count; a panel past ``tcap`` keeps its first tcap
-    tubes and counts them all, so the caller reruns at a larger cap.
-    Raises when one contig's seeds exceed a panel."""
+    concatenation is the monolithic sweep's output).  A panel is the
+    largest run of whole contigs within PANEL seeds, swept in a window of
+    PANEL rows; a contig with more seeds is a panel of its own, swept in a
+    window of its seeds' bucket.  Returns host tube arrays and the tube
+    count."""
     cap = min(_pad_bucket(max(ns_host, 1 << 13)), seeds6[0].shape[0])
     k, v1, v2, bounds = _seedsort(*(x[:cap] for x in seeds6), ns_host,
                                   alens_pad.shape[0])
     bounds = bounds.cpu().numpy()
-    # greedy panels: the largest contig boundary within PANEL of the start
     PANEL = CHAIN_DEV_CAP // 2
     panels = []
     start = 0
@@ -1084,31 +1071,29 @@ def _run_chain_paneled(seeds6, ns_host, tcap, chain_break, chain_min, amax,
         hi = int(np.searchsorted(bounds, start + PANEL, side="right")) - 1
         end = int(bounds[hi])
         if end <= start:
-            _over_cap("chain: one contig's seeds exceed the device panel")
+            # one contig past a panel: its seeds alone
+            end = int(bounds[np.searchsorted(bounds, start, side="right")])
         panels.append((start, min(end, ns_host)))
         start = end
     outs = []
-    total = 0
     for off, end in panels:
-        res = [_numpy(x) for x in _chain_panel(
-            k, v1, v2, off, end - off, PANEL, amax, bmax, alens_pad, tcap,
-            chain_break, chain_min)]
-        nt = int(res[9])
-        outs.append([x[:nt] for x in res[:9]])
-        total += nt
+        res = _chain_panel(k, v1, v2, off, end - off,
+                           max(PANEL, _pad_bucket(end - off)), amax, bmax,
+                           alens_pad, chain_break, chain_min)
+        outs.append([_numpy(x) for x in res[:9]])
     if not outs:
         return tuple([np.zeros(0, np.int64)] * 9) + (np.int64(0),)
-    return (tuple(np.concatenate([o[i] for o in outs]) for i in range(9))
-            + (np.int64(total),))
+    cols = tuple(np.concatenate([o[i] for o in outs]) for i in range(9))
+    return cols + (np.int64(len(cols[0])),)
 
 
-def _run_chain(seeds_out, nscap, tcap, chain_break, chain_min, amax, bmax,
-               alens_by_rank, device):
+def _run_chain(seeds_out, chain_break, chain_min, amax, bmax, alens_by_rank,
+               device):
     """The chain sweep over the merge's seeds: monolithic on the device up
-    to CHAIN_DEV_CAP seeds (sliced to the seeds' own bucket), paneled up to
-    CHAIN_PANEL_MAX; more seeds raise.  Returns (tube arrays, ns, nalive,
+    to CHAIN_DEV_CAP seeds (sliced to the seeds' own bucket), else in
+    A-contig panels (``_run_chain_paneled``).  Returns (tube arrays, ns,
     plsum)."""
-    pl, ac, ap, bcn, bp, bo, ns, nalive, plsum = seeds_out
+    pl, ac, ap, bcn, bp, bo, ns, _nalive, plsum = seeds_out
     alens_pad = np.zeros(1 << max(3, (len(alens_by_rank) - 1).bit_length()),
                          np.int32)
     alens_pad[:len(alens_by_rank)] = alens_by_rank
@@ -1116,50 +1101,26 @@ def _run_chain(seeds_out, nscap, tcap, chain_break, chain_min, amax, bmax,
     ns_host = int(ns)
     cap = _pad_bucket(max(ns_host, 1 << 13))
     seeds6 = (pl, ac, ap, bcn, bp, bo)
-    if cap > CHAIN_PANEL_MAX:
-        _over_cap(f"chain: {ns_host} seeds exceed the paneled sweep's cap "
-                  f"{CHAIN_PANEL_MAX}")
     if cap > CHAIN_DEV_CAP:
-        res = _run_chain_paneled(seeds6, ns_host, tcap, chain_break,
-                                 chain_min, amax, bmax, alens_dev)
-        return res, ns, nalive, plsum
-    if cap < nscap:
-        seeds6 = tuple(x[:cap] for x in seeds6)
-    res = chain_tubes_dev(seeds6, ns, amax, bmax, alens_dev, tcap,
-                          chain_break, chain_min)
-    return res, ns, nalive, plsum
-
-
-def _finish_tubes(res, ns, nalive, plsum, acap, extra_checks):
-    """Tube arrays -> (TubeBatch, nseeds, plsum); raises when a cap was
-    exceeded."""
-    (ga, gb, gc, dgmin, dgmax, alow, ahgh, pair, cov, nt) = \
-        [_numpy(x) for x in res]
-    ns, nalive, plsum = int(ns), int(nalive), int(plsum)
-    # the tube overflow test is against the emitted length
-    if nalive > acap or int(nt) > len(ga) or extra_checks():
-        _over_cap("seed/tube caps exceeded")
-    n = int(nt)
-    tubes = TubeBatch(
-        acont=ga[:n].astype(np.int32), bcont=gb[:n].astype(np.int32),
-        comp=gc[:n].astype(bool), dgmin=dgmin[:n].astype(np.int32),
-        dgmax=dgmax[:n].astype(np.int32), alow=alow[:n].astype(np.int64),
-        ahgh=ahgh[:n].astype(np.int64), pairing=pair[:n].astype(np.int64),
-        cov=cov[:n].astype(np.int64))
-    return tubes, ns, plsum
+        res = _run_chain_paneled(seeds6, ns_host, chain_break, chain_min,
+                                 amax, bmax, alens_dev)
+    else:
+        res = chain_tubes_dev(tuple(x[:cap] for x in seeds6), ns, amax, bmax,
+                              alens_dev, chain_break, chain_min)
+    return res, ns, plsum
 
 
 def device_tubes(gdb1, gdb2, alens_by_rank, freq: int = 10,
                  chain_break: int = 2000, chain_min: int = 170,
-                 tcap: int = 1 << 15, device=None, symmetric: bool = False):
+                 device=None, symmetric: bool = False):
     """TubeBatch of a genome pair from the device pipeline on ``device``
     (default: the card): (tubes, nseeds, plsum), or None with DECLINE set
     when the input exceeds a cap or field width checked before any upload.
-    A cap exceeded on the device raises RuntimeError.  ``symmetric`` adds
-    the -S flip pass (``_sym_seeds_sum``); genome 1 then takes its full
-    two-orientation table, since the flip pass's members need its
-    reverse-complement entries.  The seed slots are the expansion's own
-    (merge_seeds), where the JAX package caps them at N1."""
+    ``symmetric`` adds the -S flip pass (``_sym_seeds_sum``); genome 1 then
+    takes its full two-orientation table, since the flip pass's members
+    need its reverse-complement entries.  The seed slots are the
+    expansion's own (merge_seeds), where the JAX package caps them at
+    N1."""
     dev = torch.device("cuda" if device is None else device)
     lens1 = gdb1.contig_lengths()
     lens2 = gdb2.contig_lengths()
@@ -1179,7 +1140,6 @@ def device_tubes(gdb1, gdb2, alens_by_rank, freq: int = 10,
     N2 = _pad_bucket(int(lens2.sum()))
     cache1 = _dev_cache(gdb1, N1, dev)
     cache2 = _dev_cache(gdb2, N2, dev)
-    ACAP = max(N1 // 2, 1 << 12)
 
     with prof.span("devpipe.gix1", dev):
         T1 = (_full_table(cache1, gdb1, lens1, N1, dev) if symmetric
@@ -1191,53 +1151,43 @@ def device_tubes(gdb1, gdb2, alens_by_rank, freq: int = 10,
             C1 = driver_candidates(bps, coff, clen, invp, nc)
             T1 = driver_table(C1, min(_pad_bucket(int(C1[7])), N1))
             cache1[("drv", N1)] = T1
-    E1 = T1[0].shape[0]
     with prof.span("devpipe.gix2", dev):
         T2 = _full_table(cache2, gdb2, lens2, N2, dev)
-    E2 = T2[0].shape[0]
     with prof.span("devpipe.merge", dev):
         mout = (_sym_seeds_sum(T1, T2, freq=freq) if symmetric
                 else _merge_seeds_sum(T1, T2, freq=freq))
-    ne1, ne2 = int(T1[7]), int(T2[7])
     T1 = T2 = None
-    return _tubes_from_seeds(mout, ACAP, tcap, chain_break, chain_min,
-                             amax, bmax, alens_by_rank, dev,
-                             lambda: ne1 > E1 or ne2 > E2)
+    return _tubes_from_seeds(mout, chain_break, chain_min, amax, bmax,
+                             alens_by_rank, dev)
 
 
-def _tubes_from_seeds(mout, acap, tcap, chain_break, chain_min, amax,
-                      bmax, alens_by_rank, device, extra_checks, nscap=None):
-    """The chain sweep over a seed function's outputs, then _finish_tubes.
-    The tube cap scales with ``nscap``, by default the outputs' rows; more
-    tubes than it rerun the chain stage at a larger cap (the seeds stay on
-    the device); more alive rows than their cap raise before the sweep."""
-    nscap = mout[0].shape[0] if nscap is None else nscap
-    if int(mout[7]) > acap:
-        _over_cap("seed/tube caps exceeded")
-    tcap_eff = _tcap_for(nscap, tcap)
+def _tubes_from_seeds(mout, chain_break, chain_min, amax, bmax,
+                      alens_by_rank, device):
+    """The chain sweep over a seed function's outputs: (TubeBatch,
+    nseeds, plsum)."""
     with prof.span("devpipe.chain", device):
-        for _ in range(3):
-            res, ns, nalive, plsum = _run_chain(
-                mout, nscap, tcap_eff, chain_break, chain_min, amax, bmax,
-                alens_by_rank, device)
-            nt_host = int(res[9])
-            if nt_host <= tcap_eff or tcap_eff >= (1 << 22):
-                break
-            tcap_eff = min(_pad_bucket(nt_host + (nt_host >> 2)), 1 << 22)
-        return _finish_tubes(
-            res, ns, nalive, plsum, acap,
-            lambda: extra_checks() or nt_host > tcap_eff)
+        res, ns, plsum = _run_chain(mout, chain_break, chain_min, amax, bmax,
+                                    alens_by_rank, device)
+        ga, gb, gc, dgmin, dgmax, alow, ahgh, pair, cov = (
+            _numpy(x) for x in res[:9])
+    tubes = TubeBatch(
+        acont=ga.astype(np.int32), bcont=gb.astype(np.int32),
+        comp=gc.astype(bool), dgmin=dgmin.astype(np.int32),
+        dgmax=dgmax.astype(np.int32), alow=alow.astype(np.int64),
+        ahgh=ahgh.astype(np.int64), pairing=pair.astype(np.int64),
+        cov=cov.astype(np.int64))
+    return tubes, int(ns), int(plsum)
 
 
 def device_tubes_self(gdb1, alens_by_rank, freq: int = 10,
                       chain_break: int = 2000, chain_min: int = 170,
-                      tcap: int = 1 << 15, device=None):
+                      device=None):
     """Self-comparison TubeBatch of one genome from the device pipeline on
     ``device`` (default: the card): its GIX table (gix_arrays, cached per
     GDB), self_seeds and the chain sweep.  (tubes, nseeds, plsum), or None
-    with DECLINE set before any upload; a cap exceeded on the device
-    raises RuntimeError.  The seed slots are the expansion's own
-    (self_seeds), where the JAX package caps them at 2 * E1."""
+    with DECLINE set past a cap checked before any upload.  The seed slots
+    are the expansion's own (self_seeds), where the JAX package caps them
+    at 2 * E1."""
     dev = torch.device("cuda" if device is None else device)
     lens1 = gdb1.contig_lengths()
     if int(lens1.sum()) == 0 or int(lens1.sum()) > _MAX_DEV_BASES:
@@ -1251,22 +1201,18 @@ def device_tubes_self(gdb1, alens_by_rank, freq: int = 10,
         return _decline("contig length exceeds device field width")
 
     N1 = _pad_bucket(int(lens1.sum()))
-    E1 = max(1 << 12, N1)
-    ACAP = max(E1, 1 << 12)
     with prof.span("devpipe.gix1", dev):
         T1 = _full_table(_dev_cache(gdb1, N1, dev), gdb1, lens1, N1, dev)
     with prof.span("devpipe.merge", dev):
         mout = _self_seeds_sum(T1, freq=freq)
-    ne1 = int(T1[7])
     T1 = None
-    return _tubes_from_seeds(mout, ACAP, tcap, chain_break, chain_min,
-                             amax, amax, alens_by_rank, dev,
-                             lambda: ne1 > E1)
+    return _tubes_from_seeds(mout, chain_break, chain_min, amax, amax,
+                             alens_by_rank, dev)
 
 
 def _upload_table(t, device):
     """Host io.gix.GixTable -> device entry arrays of _pad_bucket(t.n) rows
-    (zero past t.n) and its mask bytes: (T, maskb, E)."""
+    (zero past t.n) and its mask bytes: (T, maskb)."""
     E = _pad_bucket(t.n)
     khi, klo = t.khi_klo()
 
@@ -1280,20 +1226,19 @@ def _upload_table(t, device):
     T = (w0, w1, w2, pad32(t.cont), pad32(t.post),
          pad32(t.comp.astype(np.int32)), pad32(np.minimum(t.lcp, KMER)),
          torch.tensor(t.n, dtype=torch.int64, device=device), None)
-    return T, pad32(t.maskb), E
+    return T, pad32(t.maskb)
 
 
 def device_tubes_tables(t1, t2, alens_by_rank, amax: int, bmax: int,
                         freq: int = 10, chain_break: int = 2000,
-                        chain_min: int = 170, tcap: int = 1 << 15,
-                        soft_mask: bool = False, symmetric: bool = False,
-                        device=None):
+                        chain_min: int = 170, soft_mask: bool = False,
+                        symmetric: bool = False, device=None):
     """TubeBatch from host io.gix.GixTables uploaded to ``device``
     (default: the card): a pair, or a self comparison when ``t2 is t1``;
     ``symmetric`` adds the -S flip pass to a pair.  The route of mask
     bytes, which exist only in host tables, and of a self comparison with
-    a given table.  (tubes, nseeds, plsum), or None with DECLINE set before
-    any upload; a cap exceeded on the device raises RuntimeError.  The seed
+    a given table.  (tubes, nseeds, plsum), or None with DECLINE set past
+    a cap checked before any upload.  The seed
     slots are each expansion's own, from its total before the masked or
     flipped seeds are dropped, where the JAX package caps them at twice
     the uploaded table's rows (genome 2's for the flip pass)."""
@@ -1311,14 +1256,13 @@ def device_tubes_tables(t1, t2, alens_by_rank, amax: int, bmax: int,
     mk = dict(soft_mask=soft_mask, has_masks=bool(
         t1.maskb.any() or t2.maskb.any() or soft_mask))
     with prof.span("devpipe.gix1", dev):
-        T1, mb1, E1 = _upload_table(t1, dev)
-    ACAP = max(E1, 1 << 12)
+        T1, mb1 = _upload_table(t1, dev)
     if selfish:
         with prof.span("devpipe.merge", dev):
             mout = _self_seeds_sum(T1, freq=freq, maskb1=mb1, **mk)
     else:
         with prof.span("devpipe.gix2", dev):
-            T2, mb2, _ = _upload_table(t2, dev)
+            T2, mb2 = _upload_table(t2, dev)
         with prof.span("devpipe.merge", dev):
             mout = (_sym_seeds_sum(T1, T2, freq=freq, maskb1=mb1,
                                    maskb2=mb2, **mk) if symmetric
@@ -1326,8 +1270,8 @@ def device_tubes_tables(t1, t2, alens_by_rank, amax: int, bmax: int,
                                           maskb2=mb2, **mk))
         T2 = mb2 = None
     T1 = mb1 = None
-    return _tubes_from_seeds(mout, ACAP, tcap, chain_break, chain_min,
-                             amax, bmax, alens_by_rank, dev, lambda: False)
+    return _tubes_from_seeds(mout, chain_break, chain_min, amax, bmax,
+                             alens_by_rank, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -1342,7 +1286,6 @@ def device_tubes_tables(t1, t2, alens_by_rank, amax: int, bmax: int,
 # pipeline's for any panel count.
 
 PANEL_BLOCK = 1 << 22        # positions a candidate block covers
-PANEL_MAX = 256              # most panels a run doubles up to
 _HALO_LO, _HALO_HI = 32, 64  # bases a candidate reads before / after it
 
 
@@ -1396,27 +1339,31 @@ def _panel_scan(prep, total, cap, P, panel):
              vs), (off - cap).clamp(min=0))
 
 
-def _panel_caps(N1, N2, P, selfish):
-    """A panel's caps at ``P`` panels: the two genomes' entry buffers
-    (about 1.1 entries a base over P, with 2x slack), its seeds (a self
-    run's fan-out is up to freq-2 seeds an entry) and its alive rows."""
-    cap1 = _pad_bucket(max((2 * N1) // P, 1 << 14))
-    cap2 = _pad_bucket(max((2 * N2) // P, 1 << 14))
-    return (cap1, cap2, max(2 * cap1 if selfish else cap1, 1 << 13),
-            max(cap1 if selfish else cap1 // 2, 1 << 12))
+def _panel_caps(N1, N2, P):
+    """A panel's entry buffers at ``P`` panels, one a genome: about 1.1
+    entries a base over P, with 2x slack."""
+    return (_pad_bucket(max((2 * N1) // P, 1 << 14)),
+            _pad_bucket(max((2 * N2) // P, 1 << 14)))
+
+
+def _panel_table(prep, total, cap, P, panel):
+    """``_panel_scan`` at ``cap`` rows, scanned again at its entries'
+    bucket when they pass the cap.  Returns (table, the entries past
+    ``cap`` at the first scan)."""
+    T, over = _panel_scan(prep, total, cap, P, panel)
+    over = int(over)
+    if over:
+        T, _ = _panel_scan(prep, total, _pad_bucket(cap + over), P, panel)
+    return T, over
 
 
 def _append_seeds(g1, g2, goff, out, ns):
     """Pack one panel's first ``ns`` seeds into the global buffers at row
     ``goff``; returns (g1, g2, new offset).  Buffers too short for them
-    grow to the seeds' bucket; seeds past CHAIN_PANEL_MAX, more than the
-    chain sweep takes, raise."""
+    grow to the seeds' bucket."""
     pl, ac, ap, bcn, bp, bo = (x[:ns].to(torch.int64) for x in out[:6])
     if goff + ns > g1.shape[0]:
-        if goff + ns > CHAIN_PANEL_MAX:
-            _over_cap(f"paneled seeds exceed the chain sweep's cap "
-                      f"{CHAIN_PANEL_MAX}")
-        grow = min(_pad_bucket(goff + ns), CHAIN_PANEL_MAX) - g1.shape[0]
+        grow = _pad_bucket(goff + ns) - g1.shape[0]
         g1, g2 = (torch.cat([g, torch.zeros(grow, dtype=torch.int64,
                                             device=g.device)])
                   for g in (g1, g2))
@@ -1437,22 +1384,21 @@ def _unpack_seeds(g1, g2):
 
 def device_tubes_paneled(gdb1, gdb2, alens_by_rank, freq: int = 10,
                          chain_break: int = 2000, chain_min: int = 170,
-                         tcap: int = 1 << 17, panels: int = 0,
-                         verbose: bool = False, device=None):
+                         panels: int = 0, verbose: bool = False,
+                         device=None):
     """TubeBatch of a genome pair, or of one genome against itself
     (``gdb2`` None or ``gdb1``), by kmer-panel streaming on ``device``
     (default: the card), for genomes past the single-shot bases.  Equal to
     device_tubes / device_tubes_self and the host path.
 
     ``panels`` 0 takes max(2, 2 * the larger padded genome / 2^24) rounded
-    up to a power of two.  A panel past its own caps (its entry buffer,
-    its seed cap, its alive cap) reruns the whole run at twice the panels,
-    up to PANEL_MAX; past that it raises RuntimeError.  The global seed
-    buffer starts at the JAX package's GCAP, twice genome 1's bases, and
-    grows to the seeds' bucket where a self run needs more (the JAX package
-    declines there); seeds past CHAIN_PANEL_MAX raise.  ``verbose`` prints
-    a line a panel on stderr.  (tubes, nseeds, plsum), or None with
-    DECLINE set before any upload."""
+    up to a power of two.  A panel's entries past its buffer
+    (``_panel_caps``) scan again at their bucket (``_panel_table``), and
+    its seeds take their own total's slots.  The global seed buffer starts
+    at the JAX package's GCAP, twice genome 1's bases, and grows to the
+    seeds' bucket where a run needs more.  ``verbose`` prints a line a
+    panel on stderr.  (tubes, nseeds, plsum), or None with DECLINE set
+    past a cap checked before any upload."""
     dev = torch.device("cuda" if device is None else device)
     selfish = gdb2 is None or gdb2 is gdb1
     if selfish:
@@ -1474,54 +1420,42 @@ def device_tubes_paneled(gdb1, gdb2, alens_by_rank, freq: int = 10,
         prep1 = _prep_genome(gdb1, lens1, dev)
         prep2 = prep1 if selfish else _prep_genome(gdb2, lens2, dev)
     N1, N2 = prep1[5], prep2[5]
-    if panels <= 0:
+    P = panels
+    if P <= 0:
         # a panel's merge stream stays near 16 Mi rows
-        panels = max(2, -(-(2 * max(N1, N2)) // (1 << 24)))
-        panels = 1 << (panels - 1).bit_length()
+        P = max(2, -(-(2 * max(N1, N2)) // (1 << 24)))
+        P = 1 << (P - 1).bit_length()
     GCAP = _pad_bucket(max(tot1, 1) * 2)
     g1 = torch.zeros(GCAP, dtype=torch.int64, device=dev)
     g2 = torch.zeros(GCAP, dtype=torch.int64, device=dev)
-    P = panels
-    while True:
-        cap1, cap2, NSCAP_P, acap_p = _panel_caps(N1, N2, P, selfish)
-        goff = nseeds = plsum = over = 0
-        for p in range(P):
-            t0 = time.perf_counter()
-            with prof.span("devpipe.panel", dev):
-                T1, ova = _panel_scan(prep1, tot1, cap1, P, p)
-                if selfish:
-                    ovb = torch.zeros_like(ova)
-                    out = _self_seeds_sum(T1, NSCAP_P, freq)
-                else:
-                    T2, ovb = _panel_scan(prep2, tot2, cap2, P, p)
-                    out = _merge_seeds_sum(T1, T2, NSCAP_P, freq)
-                    T2 = None
-                T1 = None
-                ns, nalive, pls, oa, ob = (int(x) for x in torch.stack(
-                    [out[6], out[7], out[8], ova, ovb]).tolist())
-                over = oa + ob + (ns > NSCAP_P) + (nalive > acap_p)
-                if verbose:
-                    sys.stderr.write(
-                        f"devpipe panel {p + 1}/{P}: ns={ns} over={over} "
-                        f"{time.perf_counter() - t0:.2f}s\n")
-                if over:
-                    break
-                g1, g2, goff = _append_seeds(g1, g2, goff, out, ns)
-            nseeds += ns
-            plsum += pls
-            out = None
-        if not over:
-            break
-        if P >= PANEL_MAX:
-            _over_cap(f"a kmer panel's caps exceeded at {P} panels")
-        P *= 2
-    GCAP = g1.shape[0]
-    nb = min(_pad_bucket(max(goff, 1 << 13)), GCAP)
+    cap1, cap2 = _panel_caps(N1, N2, P)
+    goff = nseeds = plsum = 0
+    for p in range(P):
+        t0 = time.perf_counter()
+        with prof.span("devpipe.panel", dev):
+            T1, over = _panel_table(prep1, tot1, cap1, P, p)
+            if selfish:
+                out = _self_seeds_sum(T1, 0, freq)
+            else:
+                T2, ovb = _panel_table(prep2, tot2, cap2, P, p)
+                over += ovb
+                out = _merge_seeds_sum(T1, T2, 0, freq)
+                T2 = None
+            T1 = None
+            ns, pls = (int(x) for x in torch.stack([out[6], out[8]]).tolist())
+            if verbose:
+                sys.stderr.write(
+                    f"devpipe panel {p + 1}/{P}: ns={ns} over={over} "
+                    f"{time.perf_counter() - t0:.2f}s\n")
+            g1, g2, goff = _append_seeds(g1, g2, goff, out, ns)
+        nseeds += ns
+        plsum += pls
+        out = None
+    nb = min(_pad_bucket(max(goff, 1 << 13)), g1.shape[0])
     seeds = _unpack_seeds(g1[:nb], g2[:nb]) + (goff, 0, plsum)
     g1 = g2 = None
-    return _tubes_from_seeds(seeds, 0, tcap, chain_break, chain_min,
-                             amax, bmax, alens_by_rank, dev, lambda: False,
-                             nscap=GCAP)
+    return _tubes_from_seeds(seeds, chain_break, chain_min, amax, bmax,
+                             alens_by_rank, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -1533,11 +1467,11 @@ def build_gix_device(gdb, device=None):
     contig padding) from ``gix_arrays`` on ``device`` (default: the card);
     only the finished entry rows cross to the host.
 
-    A genome past a cap the JAX package checks before any upload (total
-    bases, contig count, contig length) is built on the host by
-    io.gix.build_gix, and a line on stderr says so.  The entry count is
-    known only on the device: past the table's cap it raises RuntimeError,
-    as in device_tubes."""
+    A genome past a cap of the JAX package's checked before any upload
+    (total bases, contig count, contig length) is built on the host by
+    io.gix.build_gix, and a line on stderr says so.  The table keeps every
+    entry the device counts (the JAX package builds on the host past
+    max(4096, N))."""
     dev = torch.device("cuda" if device is None else device)
     lens = gdb.contig_lengths()
     reason = None
@@ -1555,11 +1489,8 @@ def build_gix_device(gdb, device=None):
         return gixm.build_gix(gdb)
     with prof.span("devpipe.gix", dev):
         bps, coff, clen, invp, nc, N = _prep_genome(gdb, lens, dev)
-        E = max(1 << 12, N)
-        T = gix_arrays(bps, coff, clen, invp, nc, ecap=E)
+        T = gix_arrays(bps, coff, clen, invp, nc)
         n = int(T[7])
-        if n > E:
-            _over_cap("GIX entry cap exceeded")
         w0, w1, w2, cont, post, comp, lcp = (_numpy(x[:n]) for x in T[:7])
     w0, w1, w2 = (w.view(np.uint32) for w in (w0, w1, w2))
     kbytes = np.empty((n, KMER // 4), np.uint8)

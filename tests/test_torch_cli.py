@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import sys
 import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
@@ -35,6 +36,7 @@ from fastga_tpu.io.gdb import MaskIval
 from fastga_tpu.utils import dna
 from fastga_tpu_torch.cli import alntopaf as talntopaf
 from fastga_tpu_torch.cli import fastga as tcli
+from fastga_tpu_torch.cli import fastks as tfastks
 from fastga_tpu_torch.cli import gixmake as tgixmake
 from fastga_tpu_torch.io import alncode as taln
 from fastga_tpu_torch.io import gdb as tgdb
@@ -294,6 +296,26 @@ def test_build_gix_device_matches_host(lens):
         assert a.dtype == b.dtype and np.array_equal(a, b), f
 
 
+def test_build_gix_device_past_the_jax_entry_cap(capsys):
+    """A genome whose GIX entries pass its padded bases N, the JAX
+    package's entry cap, past which it builds on the host (a poly-A
+    contig gives two entries a base): the device build keeps every entry,
+    prints nothing and equals build_gix field by field."""
+    from fastga_tpu_torch.utils import synth
+    rng = np.random.default_rng(5)
+    g, _ = synth.to_gdb("g", [rng.integers(0, 4, n).astype(np.uint8)
+                              for n in (9000, 7001)]
+                        + [np.zeros(8575, np.uint8)])
+    dev = tdp.build_gix_device(g, "cpu")
+    assert capsys.readouterr().err == ""
+    host = tgix.build_gix(g)
+    N = tdp._pad_bucket(int(g.contig_lengths().sum()))
+    assert N == 24576 and host.n > N
+    for f in GIX_FIELDS:
+        a, b = np.asarray(getattr(host, f)), np.asarray(getattr(dev, f))
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+
+
 def test_gixmake_and_gix_inputs(pair, tmp_path, capsys):
     """gixmake (device build) writes the host build's files, and `fastga
     A.gix B.gix` gives `fastga A.fa B.fa`'s PAF."""
@@ -341,9 +363,20 @@ def _python_m(tool, args=(), hide_cards=False):
         capture_output=True, text=True, timeout=120, env=env, cwd=ROOT)
 
 
-@pytest.mark.parametrize("tool", ["fastga", "gixmake", "alntopaf"])
-def test_python_m_no_args(tool):
-    p = _python_m(tool)
+TOOLS = ["fastga", "gixmake", "alntopaf", "fatogdb", "gdbshow", "gdbstat",
+         "gdbtofa", "gixshow", "gixrm", "gixcp", "gixmv", "gixxfer", "fastks",
+         "anoshow", "anostat", "anotobed", "bedtoano"]
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_python_m_no_args(tool, _results={}):
+    """Every entry, run as `python -m` with no arguments, exits 0 or 1
+    with a usage line and no traceback (the subprocesses run at once in a
+    thread pool, on the first case)."""
+    if not _results:
+        with ThreadPoolExecutor(max_workers=8) as ex:
+            _results.update(zip(TOOLS, ex.map(_python_m, TOOLS)))
+    p = _results[tool]
     assert p.returncode in (0, 1), (tool, p.returncode, p.stderr[-500:])
     assert "Usage:" in p.stderr
     assert "Traceback" not in p.stderr + p.stdout
@@ -356,7 +389,7 @@ def test_python_m_without_a_card_exits_1(pair):
     assert "Traceback" not in p.stderr and p.stdout == ""
 
 
-@pytest.mark.parametrize("tool", ["fastga", "gixmake"])
+@pytest.mark.parametrize("tool", ["fastga", "gixmake", "fastks"])
 def test_main_needs_the_card_unless_cpu(pair, tool, tmp_path, monkeypatch,
                                         capsys):
     """device=None is the card: without one, main fails with
@@ -365,8 +398,9 @@ def test_main_needs_the_card_unless_cpu(pair, tool, tmp_path, monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     shutil.copy(pair / "A.fa", tmp_path / "A.fa")
     args = [str(tmp_path / "A.fa")] + ([str(pair / "B.fa")]
-                                       if tool == "fastga" else [])
-    main = tcli.main if tool == "fastga" else tgixmake.main
+                                       if tool != "gixmake" else [])
+    main = {"fastga": tcli.main, "gixmake": tgixmake.main,
+            "fastks": tfastks.main}[tool]
     with pytest.raises(SystemExit) as e:
         main(args)
     assert e.value.code == 1

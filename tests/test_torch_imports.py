@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package, and its entry point
 runs on the card unless the caller asks for the CPU."""
 
+import ast
 import os
 import pkgutil
 import subprocess
@@ -20,8 +21,12 @@ def test_port_imports_no_jax():
         m.name for m in pkgutil.walk_packages(fastga_tpu_torch.__path__,
                                               "fastga_tpu_torch.")]
     assert "fastga_tpu_torch.ops.wave_kernels" in mods
-    assert {"fastga_tpu_torch.cli.fastga", "fastga_tpu_torch.cli.gixmake",
-            "fastga_tpu_torch.cli.alntopaf"} <= set(mods)
+    assert {f"fastga_tpu_torch.cli.{t}" for t in (
+        "fastga", "gixmake", "alntopaf", "fatogdb", "gdbshow", "gdbstat",
+        "gdbtofa", "gixshow", "gixrm", "gixcp", "gixmv", "gixxfer", "fastks",
+        "anoshow", "anostat", "anotobed", "bedtoano")} <= set(mods)
+    assert {"fastga_tpu_torch.utils.select",
+            "fastga_tpu_torch.utils.fmt"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -75,3 +80,23 @@ def test_wave0_wrapper_refuses_cpu_mix_and_bad_w(W, match):
     col = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError, match=match):
         wk.wave0(pool, (col,) * 6, col, col, col, col, W, 1)
+
+
+def test_device_seeds_neither_raise_on_caps_nor_catch():
+    """Past the JAX package's caps after upload the device seed pipeline
+    sizes to its counts: no helper that raises on a cap is left in the
+    package, the pipeline has no host chain sweep to fall back to, and
+    neither the pipeline nor the aligner that routes it catches an
+    exception (an error on the card reaches the caller)."""
+    pkg = os.path.join(ROOT, "fastga_tpu_torch")
+    for d, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(d, f)) as fh:
+                    assert "_over_cap" not in fh.read(), f
+    for rel in ("ops/device_pipeline.py", "models/aligner.py"):
+        with open(os.path.join(pkg, rel)) as fh:
+            tree = ast.parse(fh.read())
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel
+    from fastga_tpu_torch.ops import device_pipeline as tp
+    assert not hasattr(tp, "chain_tubes") and not hasattr(tp, "SeedBatch")

@@ -203,8 +203,8 @@ def test_masked_flip_and_self_columns_match_jax(g):
         want = [np.asarray(x) for x in dp._sym_jit(
             E1, E2, c1, c2, E1, E2, 10, True, True, presorted=True)(
                 J1, J2, jm1, jm2)]
-    (T1, mb1, _), (T2, mb2, _) = (tp._upload_table(t, CPU)
-                                  for t in (p.t1, p.t2))
+    (T1, mb1), (T2, mb2) = (tp._upload_table(t, CPU)
+                            for t in (p.t1, p.t2))
     got = convert.outputs_to_numpy(tp._sym_seeds_sum(
         T1, T2, c1, c2, 10, soft_mask=True, has_masks=True, maskb1=mb1,
         maskb2=mb2))
@@ -220,7 +220,7 @@ def test_masked_flip_and_self_columns_match_jax(g):
     with jax.enable_x64():
         want = [np.asarray(x) for x in dp._self_jit(E, c, E, 10, True, True)(
             J, jm)]
-    T, mb, _ = tp._upload_table(p.t1, CPU)
+    T, mb = tp._upload_table(p.t1, CPU)
     got = convert.outputs_to_numpy(tp._self_seeds_sum(
         T, c, 10, soft_mask=True, has_masks=True, maskb1=mb))
     ns = int(want[6])
@@ -254,8 +254,8 @@ def test_expansion_total_is_tested_before_compaction(g, monkeypatch, what):
     mk = dict(soft_mask=True, has_masks=True)
     if what == "masked":
         p = g.masked[True]
-        (T1, mb1, _), (T2, mb2, _) = (tp._upload_table(t, CPU)
-                                      for t in (p.t1, p.t2))
+        (T1, mb1), (T2, mb2) = (tp._upload_table(t, CPU)
+                                for t in (p.t1, p.t2))
 
         def run(c):
             return tp._merge_seeds_sum(T1, T2, c, 10, maskb1=mb1,
@@ -263,15 +263,15 @@ def test_expansion_total_is_tested_before_compaction(g, monkeypatch, what):
         host = tmerge.adaptamer_seeds(p.t1, p.t2, freq=10, soft_mask=True)
     elif what == "symmetric":
         p = g.sym
-        (T1, _, _), (T2, _, _) = (tp._upload_table(t, CPU)
-                                  for t in (p.t1, p.t2))
+        (T1, _), (T2, _) = (tp._upload_table(t, CPU)
+                            for t in (p.t1, p.t2))
 
         def run(c):
             return tp._merge_seeds_sum(T2, T1, c, 10, flip=True)
         host = tmerge.adaptamer_seeds_flip(p.t1, p.t2, freq=10)
     else:
         p = g.selfm
-        T, mb, _ = tp._upload_table(p.t1, CPU)
+        T, mb = tp._upload_table(p.t1, CPU)
 
         def run(c):
             return tp._self_seeds_sum(T, c, 10, maskb1=mb, **mk)

@@ -287,8 +287,9 @@ def test_gix_arrays_and_driver_table_match_jax(genomes):
         assert tN == N and tnc == int(nc)
         for a, b in ((bps, tb), (coff, tcoff), (clen, tclen), (invp, tinvp)):
             assert _eq(np.asarray(a), b.numpy())
-        _assert_tuples(J, tp.gix_arrays(tb, tcoff, tclen, tinvp, tnc,
-                                        ecap=N))
+        # the JAX table keeps N of its 2N rows
+        G = tp.gix_arrays(tb, tcoff, tclen, tinvp, tnc)
+        _assert_tuples(J, tuple(x[:N] for x in G[:7]) + (G[7], G[8][:N]))
         TC = tp.driver_candidates(tb, tcoff, tclen, tinvp, tnc)
         _assert_tuples(C, TC)
         _assert_tuples(JD, tp.driver_table(TC, ecap))
@@ -310,7 +311,8 @@ def test_merge_seeds_matches_jax(genomes):
 @pytest.mark.parametrize("chain_break", [2000, 200])
 def test_chain_tubes_dev_matches_jax(genomes, chain_break):
     """The closed-form break test (chain_break >= 256) and the fixpoint
-    loop below it, all ten outputs over their whole length."""
+    loop below it: all ten outputs, the tube arrays one row a tube (the
+    JAX package's first rows of its tube cap's)."""
     ns = int(genomes.mout[6])
     nscap = min(dp._pad_bucket(max(ns, 1 << 13)), genomes.nscap)
     seeds = [x[:nscap] for x in genomes.mout[:6]]
@@ -324,10 +326,10 @@ def test_chain_tubes_dev_matches_jax(genomes, chain_break):
             jnp.asarray(alens_pad))
     T = tp.chain_tubes_dev(convert.seeds_from_numpy(seeds, CPU), ns,
                            genomes.amax, genomes.bmax,
-                           torch.as_tensor(alens_pad), tcap, chain_break,
-                           170)
-    assert int(np.asarray(J[9])) > 0
-    _assert_tuples(J, T)
+                           torch.as_tensor(alens_pad), chain_break, 170)
+    n = int(np.asarray(J[9]))
+    assert 0 < n < tcap
+    _assert_tuples([np.asarray(x)[:n] for x in J[:9]] + [J[9]], T)
 
 
 def test_device_tubes_matches_jax_and_host(genomes):
@@ -346,54 +348,58 @@ def test_device_tubes_matches_jax_and_host(genomes):
     assert LAUNCHES["merge_path"] == LAUNCHES["fused_scan"] == 0
 
 
-@pytest.mark.parametrize("branch", ["paneled", "host sweep",
-                                    "contig overflow", "panel tube overflow",
-                                    "tube overflow"])
-def test_device_tubes_chain_branches(genomes, monkeypatch, branch):
-    """Past CHAIN_DEV_CAP the sweep panels by A-contig ranges, and more
-    tubes than the tube cap rerun the chain stage at a larger cap, in a
-    panel or in the monolithic sweep: the tubes stay the same.  Past
-    CHAIN_PANEL_MAX (where the JAX package sweeps on the host), or when one
-    contig's seeds overflow a panel, the run raises: the seeds never leave
-    the device for a host sweep."""
-    # just below the seeds' bucket: a monolithic sweep is refused, and
-    # every contig's seeds fit in a panel of half that
-    bucket = dp._pad_bucket(max(genomes.jres[1], 1 << 13))
-    cap, pmax = {"paneled": (bucket - 1, tp.CHAIN_PANEL_MAX),
-                 "host sweep": (1 << 12, 1 << 12),
-                 "contig overflow": (1 << 8, 1 << 30),
-                 "panel tube overflow": (bucket - 1, tp.CHAIN_PANEL_MAX),
-                 "tube overflow": (tp.CHAIN_DEV_CAP, tp.CHAIN_PANEL_MAX),
-                 }[branch]
+@pytest.mark.parametrize("branch", ["monolithic", "paneled",
+                                    "contig overflow",
+                                    "some contigs overflow",
+                                    "a contig at the panel's size"])
+def test_device_tubes_chain_branches(genomes, monkeypatch, capsys, branch):
+    """Up to CHAIN_DEV_CAP seeds one sweep; past it the sweep panels by
+    A-contig ranges of CHAIN_DEV_CAP // 2 seeds, and a contig with more
+    seeds than that takes a window of its own seeds' bucket.  With a
+    contig past a panel, and past 6 x CHAIN_DEV_CAP seeds (both at once in
+    "contig overflow"), where the JAX package chains on the host, the
+    sweep stays on the device.  The tubes, seeds and seed-length sum are the JAX package's on
+    every branch, and nothing is printed."""
+    ns = genomes.jres[1]
+    bucket = dp._pad_bucket(max(ns, 1 << 13))
+    perc = np.bincount(genomes.mout[1][:ns])     # seeds of each A contig
+    cap = {"monolithic": tp.CHAIN_DEV_CAP,
+           # just below the seeds' bucket: every contig fits a panel
+           "paneled": bucket - 1,
+           "contig overflow": 1 << 8,
+           # a panel between the fewest and the most seeds of a contig
+           "some contigs overflow": 2 * int(np.median(perc)),
+           # the largest contig's seeds fill a panel exactly
+           "a contig at the panel's size": 2 * int(perc.max())}[branch]
     monkeypatch.setattr(tp, "CHAIN_DEV_CAP", cap)
-    monkeypatch.setattr(tp, "CHAIN_PANEL_MAX", pmax)
-    ntubes = genomes.jres[0].n
-    if branch.endswith("tube overflow"):
-        assert ntubes > 2
-        monkeypatch.setattr(tp, "_tcap_for", lambda nscap, tcap: 2)
-    tcaps, panels = [], []     # the tube cap of each chain run
-    run_chain, paneled = tp._run_chain, tp._run_chain_paneled
-    monkeypatch.setattr(tp, "_run_chain",
-                        lambda *a: tcaps.append(a[2]) or run_chain(*a))
-    monkeypatch.setattr(tp, "_run_chain_paneled",
-                        lambda *a: panels.append(a[2]) or paneled(*a))
-    if branch in ("host sweep", "contig overflow"):
-        match = {"host sweep": "exceed the paneled sweep's cap",
-                 "contig overflow": "exceed the device panel"}[branch]
-        with pytest.raises(RuntimeError, match=match):
-            tp.device_tubes(genomes.tg1, genomes.tg2, genomes.alens,
-                            device=CPU)
-        assert len(panels) == (branch == "contig overflow")
-        return
+    if branch == "contig overflow":
+        assert bucket > 6 * cap
+    windows, sweeps = [], []
+    panel, sweep = tp._chain_panel, tp.chain_tubes_dev
+    monkeypatch.setattr(tp, "_chain_panel", lambda *a: windows.append(
+        (a[4], a[5])) or panel(*a))
+    monkeypatch.setattr(tp, "chain_tubes_dev", lambda *a: sweeps.append(
+        a[0][0].shape[0]) or sweep(*a))
     tubes, nseeds, plsum = tp.device_tubes(genomes.tg1, genomes.tg2,
                                            genomes.alens, device=CPU)
     assert (nseeds, plsum) == genomes.jres[1:]
     _assert_tubes(genomes.jres[0], tubes)
-    if branch.endswith("tube overflow"):
-        assert len(tcaps) == 2 and tcaps[0] == 2 and tcaps[1] >= ntubes
+    assert capsys.readouterr().err == ""
+    if branch == "monolithic":
+        assert windows == [] and sweeps == [bucket]
+        return
+    PANEL = cap // 2
+    assert sum(n for n, _ in windows) == ns and len(sweeps) == len(windows)
+    for (n, w), rows in zip(windows, sweeps):
+        assert w == max(PANEL, tp._pad_bucket(n)) and rows <= w
+    big = int((perc > PANEL).sum())
+    assert sum(n > PANEL for n, _ in windows) == big
+    if branch == "some contigs overflow":
+        assert 0 < big < len(perc)
     else:
-        assert len(tcaps) == 1
-    assert panels == (tcaps if branch.startswith("panel") else [])
+        assert big == {"contig overflow": len(perc)}.get(branch, 0)
+    if branch == "a contig at the panel's size":
+        assert max(n for n, _ in windows) >= PANEL == perc.max()
 
 
 def test_device_tubes_decline_matches_jax(genomes):

@@ -12,7 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from fastga_tpu.io import gix as jgix
+from fastga_tpu.ops import chain as jchain
 from fastga_tpu.ops import device_pipeline as dp
+from fastga_tpu.ops import merge as jmerge
 from fastga_tpu_torch import convert
 from fastga_tpu_torch.io import gix as tgix
 from fastga_tpu_torch.models import aligner as tal
@@ -136,35 +139,72 @@ def test_paneled_default_panels_and_verbose(g, capsys):
     assert sum(ns) == got[1] and all(" over=0 " in ln for ln in lines)
 
 
-@pytest.mark.parametrize("cap", ["entries", "seeds", "alive"])
-def test_panel_cap_doubles_panels(g, monkeypatch, cap):
-    """A panel past one of its caps (below 8 panels here) reruns the run at
-    twice the panels: 2, 4, then 8, with the JAX package's tubes."""
+@pytest.mark.parametrize("cap", ["genome 1", "genome 2", "both"])
+def test_panel_cap_rescans_the_panel(g, monkeypatch, capsys, cap):
+    """A panel's entries past its buffer (here 64 rows) scan again at
+    their bucket: every panel of the lowered genome twice, the second
+    time with room for all its entries, and the JAX package's tubes (it
+    doubles the panels instead)."""
     caps = tp._panel_caps
-    seen = []
+    monkeypatch.setattr(tp, "_panel_caps", lambda N1, N2, P: tuple(
+        64 if cap in (who, "both") else c
+        for who, c in zip(("genome 1", "genome 2"), caps(N1, N2, P))))
+    scans = []
+    scan = tp._panel_scan
 
-    def small(N1, N2, P, selfish):
-        seen.append(P)
-        c = list(caps(N1, N2, P, selfish))
-        if P < 8:
-            i = {"entries": 1, "seeds": 2, "alive": 3}[cap]
-            c[i] = 64
-            if cap == "entries":
-                c[0] = 64
-        return tuple(c)
-    monkeypatch.setattr(tp, "_panel_caps", small)
-    got = tp.device_tubes_paneled(g.tg1, g.tg2, g.alens, panels=2,
-                                  device=CPU)
-    assert seen == [2, 4, 8]
+    def scan_w(prep, total, c, P, p):
+        T, over = scan(prep, total, c, P, p)
+        scans.append((prep is pre[0], p, c, int(T[7]), int(over)))
+        return T, over
+    pre = []
+    prep = tp._prep_genome
+    monkeypatch.setattr(tp, "_prep_genome", lambda *a: pre.append(
+        prep(*a)) or pre[-1])
+    monkeypatch.setattr(tp, "_panel_scan", scan_w)
+    got = tp.device_tubes_paneled(g.tg1, g.tg2, g.alens, panels=4,
+                                  verbose=True, device=CPU)
     _same(g.jppair, got)
+    for first in (True, False):
+        low = cap in ("both", "genome 1" if first else "genome 2")
+        mine = [x for x in scans if x[0] == first]
+        assert [x[1] for x in mine] == ([0, 0, 1, 1, 2, 2, 3, 3] if low
+                                        else [0, 1, 2, 3])
+        for a, b in zip(mine[::2], mine[1::2]) if low else ():
+            # the first scan keeps 64 entries and counts the rest
+            assert a[2:4] == (64, 64) and a[4] > 0
+            assert b[2] == tp._pad_bucket(64 + a[4])
+            assert b[3:] == (64 + a[4], 0)
+    overs = [int(ln.split("over=")[1].split()[0])
+             for ln in capsys.readouterr().err.splitlines()]
+    assert len(overs) == 4 and all(o > 0 for o in overs)
 
 
-def test_panel_cap_past_panel_max_raises(g, monkeypatch):
-    monkeypatch.setattr(tp, "PANEL_MAX", 8)
+def test_panel_entries_past_their_buffer_stay_on_card(g, monkeypatch,
+                                                      capsys, no_waves):
+    """Through align_genomes (the single-shot route declined on its bases
+    first), self panels whose entries pass a 64-row buffer at any panel
+    count, where the JAX package declines past its most panels: the
+    panels scan again, and the run seeds on the card with the JAX
+    package's seeds, tubes and seed-length average."""
     caps = tp._panel_caps
-    monkeypatch.setattr(tp, "_panel_caps", lambda *a: (64,) + caps(*a)[1:])
-    with pytest.raises(RuntimeError, match="caps exceeded at 8 panels"):
-        tp.device_tubes_paneled(g.tg1, None, g.alens, panels=4, device=CPU)
+    monkeypatch.setattr(tp, "_panel_caps",
+                        lambda *a: (64,) + caps(*a)[1:])
+    calls = _routes(monkeypatch)
+    monkeypatch.setattr(tp, "_MAX_DEV_BASES", 1000)
+    _, stats = tal.align_genomes(g.tg1, g.tg1, device="cpu")
+    assert calls == ["device_tubes_self", "device_tubes_paneled"]
+    _device_stats(stats, g.jself, capsys)
+
+
+def _device_stats(stats, want, capsys):
+    """align_genomes seeded on the card with ``want``'s (tubes, seeds,
+    seed-length sum), and no decline printed."""
+    assert stats["seed_pipeline"] == "device"
+    assert "seed_decline" not in stats
+    assert (stats["nseeds"], stats["nhits"]) == (want[1], want[0].n)
+    assert stats["seed_len_avg"] == pytest.approx(want[2] / want[1],
+                                                  rel=1e-12)
+    assert "declined" not in capsys.readouterr().err
 
 
 def test_self_seeds_rerun_at_their_bucket(g):
@@ -211,13 +251,96 @@ def _short_buffer(monkeypatch):
     return sizes
 
 
-def test_paneled_seeds_past_chain_cap_raise(g, monkeypatch):
-    """More seeds than the chain sweep takes (CHAIN_PANEL_MAX, here 4,000)
-    raise when a panel appends them."""
-    _short_buffer(monkeypatch)
-    monkeypatch.setattr(tp, "CHAIN_PANEL_MAX", 4000)
-    with pytest.raises(RuntimeError, match="the chain sweep's cap 4000"):
-        tp.device_tubes_paneled(g.tg1, None, g.alens, panels=4, device=CPU)
+def test_paneled_seeds_past_the_jax_chain_caps_stay_on_card(g, monkeypatch,
+                                                            capsys):
+    """A global buffer that grows, and more seeds than the JAX package's
+    paneled chain takes (a bucket past 6 x CHAIN_DEV_CAP, here 1,500),
+    with every contig past a chain panel: the chain sweeps on the device,
+    a window a contig, with the JAX package's self tubes and nothing
+    printed."""
+    sizes = _short_buffer(monkeypatch)
+    monkeypatch.setattr(tp, "CHAIN_DEV_CAP", 1500)
+    windows = []
+    panel = tp._chain_panel
+    monkeypatch.setattr(tp, "_chain_panel", lambda *a: windows.append(
+        (a[4], a[5])) or panel(*a))
+    got = tp.device_tubes_paneled(g.tg1, None, g.alens, panels=4,
+                                  device=CPU)
+    _same(g.jpself, got)
+    assert sizes[0] == 3000 and max(sizes) > 3000
+    assert tp._pad_bucket(got[1]) > 6 * 1500
+    assert len(windows) == g.tg1.ncontig and all(
+        n > 750 and w == tp._pad_bucket(n) for n, w in windows)
+    assert capsys.readouterr().err == ""
+
+
+@pytest.mark.parametrize("case", ["pair", "self", "-S", "paneled pair",
+                                  "paneled self"])
+def test_entries_past_the_jax_cap_stay_on_card(g, monkeypatch, capsys,
+                                               no_waves, case):
+    """A poly-A contig (two entries a base) takes each genome's GIX
+    entries past its padded bases N, the JAX package's entry cap, where it
+    declines to the host: the port's single-shot route keeps every entry
+    and align_genomes seeds on the card, with the JAX host path's seeds,
+    tubes and seed-length average.  Through the paneled route at four
+    panels the poly-A entries crowd the first kmer panel (A...) and their
+    reverse complements the last (T...) past their buffers, which scan
+    again."""
+    selfish, sym = case.endswith("self"), case == "-S"
+    paneled = case.startswith("paneled")
+
+    def with_poly_a(seqs):
+        # up to the bucket past a quarter more bases: entries above N
+        n = sum(map(len, seqs))
+        return seqs + [np.zeros(dp._pad_bucket(n + n // 4) - n, np.uint8)]
+    A, B = with_poly_a(list(g.A)), with_poly_a(list(g.B))
+    g1 = synth.to_gdb("a", A)[0]
+    g2 = g1 if selfish else synth.to_gdb("b", B)[0]
+    for gd in (g1, g2):
+        lens = gd.contig_lengths()
+        N = tp._pad_bucket(int(lens.sum()))
+        assert N == int(lens.sum()) and int(
+            tp._full_table({}, gd, lens, N, CPU)[7]) > N
+    calls = _routes(monkeypatch)
+    scans = []
+    scan = tp._panel_scan
+    monkeypatch.setattr(tp, "_panel_scan", lambda *a: scans.append(
+        a[4]) or scan(*a))
+    if paneled:
+        got = tp.device_tubes_paneled(g1, None if selfish else g2,
+                                      _alens(g1.contig_lengths()),
+                                      panels=4, device=CPU)
+        # each genome's scans of each panel: twice for the first and last
+        k = 1 if selfish else 2
+        assert [scans.count(p) for p in range(4)] == [2 * k, k, k, 2 * k]
+    else:
+        _, stats = tal.align_genomes(g1, g2, device="cpu", symmetric=sym)
+        assert calls == ["device_tubes_self" if selfish else "device_tubes"]
+    jg1 = _gdb(A)
+    jt1 = jgix.build_gix(jg1)
+    alens = _alens(jg1.contig_lengths())
+    if selfish:
+        seeds = jmerge.self_adaptamer_seeds(jt1, freq=10)
+        bmax = int(jg1.contig_lengths().max())
+    else:
+        jg2 = _gdb(B)
+        jt2 = jgix.build_gix(jg2)
+        seeds = jmerge.adaptamer_seeds(jt1, jt2, freq=10)
+        if sym:
+            extra = jmerge.adaptamer_seeds_flip(jt1, jt2, freq=10)
+            seeds = jmerge.SeedBatch(*[
+                np.concatenate([getattr(seeds, f), getattr(extra, f)])
+                for f in ("plen", "acont", "apost", "bcont", "bpost",
+                          "bcomp")])
+        bmax = int(jg2.contig_lengths().max())
+    want = (jchain.chain_tubes(seeds, int(jg1.contig_lengths().max()), bmax,
+                               alens),
+            seeds.n, int(seeds.plen.astype(np.int64).sum()))
+    assert want[0].n > 0
+    if paneled:
+        _same(want, got)
+    else:
+        _device_stats(stats, want, capsys)
 
 
 # -- align_genomes' routing ---------------------------------------------------

@@ -128,6 +128,24 @@ Phases (every one runs; any failure exits non-zero before the summary):
    B.fa (indices built on the card) printing the histogram of the port's
    fastks on .gix files of the host build_gix (a worker process of phase
    1), each tool's wall time logged with the card's line.
+13. the alignment tools and the ONEaln library (fastga_tpu_torch.cli:
+   alnchain, alnplot, alnshow, alntopsl, alnreset, oneview, paftoaln,
+   paftopsl; fastga_tpu_torch.api), each tool's main in process, under
+   fastga_tpu_torch/_build/cli/aln/: (a) tests/test_alnchain.py's
+   rearranged pair through `fastga -1:` on the card (every kernel
+   launched; the records of `fastga -Eref`), then alnchain with four
+   option sets, alntopaf -x then paftoaln, paftopsl and alnplot with three
+   argument sets equal to the C goldens (golden/alnchain.json,
+   paftoaln.json, paftopsl.txt, plot_*.eps) and alntopsl to the PAF route;
+   on phase 9's E/F .1aln alnshow with six argument sets and alntopsl
+   equal to golden/ref_show_*.txt and ref_psl.txt, oneview ASCII <->
+   binary and alnreset keeping every data line; AlnReader on
+   golden/onealn/apigold.1aln equal to onealn/oracle.json; (b) on phase
+   9's repeat-rich .1aln (92,988 records): AlnReader's CIGAR and CS tag of
+   the first 1,000 records consuming the records' spans, alnchain (every
+   kept record an input record), alnplot (one EPS segment a record past
+   its filter) and alnshow @1 (one line a record of scaffold 1), each
+   tool's wall time logged with the card's line.
 
 The second-to-last line is the per-kernel JSON summary, the last line the
 device summary.
@@ -2766,6 +2784,299 @@ def phase_tools(gs_rr, host_tools):
     log(f"tools: phase {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 13: the alignment tools and the ONEaln library ---------------------
+
+ALN_DIR = os.path.join(CLI_DIR, "aln")
+GOLD_DIR = os.path.join(HERE, "tests", "golden")
+# tests/test_alnchain.py's option sets, each a key of golden/alnchain.json
+CHAIN_CASES = (("default", []), ("s1000", ["-s1000"]),
+               ("cf", ["-c0.1", "-f200"]), ("n3", ["-n3", "-s500"]))
+PLOT_CASES = (([], "plot_default.eps"), (["-L", "-G"], "plot_LG.eps"),
+              (["-S", "-W800"], "plot_SW_sel.eps"))
+# tests/test_convert.py's ALNshow cases: (arguments before and after the
+# .1aln, golden)
+SHOW_CASES = (([], [], "ref_show_plain.txt"), (["-a"], [], "ref_show_a.txt"),
+              (["-r", "-w60"], [], "ref_show_r_w60.txt"),
+              (["-a", "-n"], [], "ref_show_a_n.txt"),
+              ([], ["@1-", "@1"], "ref_show_sel_rev.txt"),
+              (["-a", "-b0"], ["@1:0-12k"], "ref_show_a_b0_sel.txt"))
+AT_SCALE_CIGARS = 1000
+
+
+def golden(name):
+    with open(os.path.join(GOLD_DIR, name)) as f:
+        return f.read()
+
+
+def rearranged_fasta(d):
+    """tests/test_alnchain.py's rearranged pair (numpy rng 4242, five
+    segments, B in two contigs) as A.fasta and B.fasta in ``d``."""
+    rng = np.random.default_rng(4242)
+
+    def mut(x, r=.04):
+        x = x.copy()
+        m = rng.random(len(x)) < r
+        x[m] = (x[m] + rng.integers(1, 4, m.sum())) % 4
+        return x
+
+    def wrap(s):
+        return "\n".join(s[i:i + 70] for i in range(0, len(s), 70))
+
+    segs = [rng.integers(0, 4, n) for n in (8000, 6000, 7000, 5000, 9000)]
+    A = np.concatenate(segs)
+    B = np.concatenate([mut(segs[2]), mut(segs[0]), (3 - mut(segs[3]))[::-1],
+                        mut(segs[0]), mut(segs[4]), mut(segs[1][:3000]),
+                        mut(segs[1][2000:])])
+    text = lambda x: "".join("acgt"[v] for v in x)
+    cut = len(B) // 2
+    paths = os.path.join(d, "A.fasta"), os.path.join(d, "B.fasta")
+    with open(paths[0], "w") as f:
+        f.write(">a1\n" + wrap(text(A)) + "\n")
+    with open(paths[1], "w") as f:
+        f.write(">b1\n" + wrap(text(B[:cut])) + "\n>b2\n"
+                + wrap(text(B[cut:])) + "\n")
+    return paths
+
+
+def record_fields(o):
+    return (o.aread, o.abpos, o.aepos, o.bread, o.bbpos, o.bepos,
+            bool(o.bcomp), o.diffs, tuple(map(tuple, o.trace)))
+
+
+def first_difference(want, got):
+    """The first record and field where two record lists differ."""
+    names = ("aread", "abpos", "aepos", "bread", "bbpos", "bepos", "bcomp",
+             "diffs", "trace")
+    for i, (w, g) in enumerate(zip(want, got)):
+        for n, a, b in zip(names, record_fields(w), record_fields(g)):
+            if a != b:
+                return f"record {i} {n}: {a} against {b}"
+    return f"{len(want)} records against {len(got)}"
+
+
+def aln_check(what, ok):
+    if not ok:
+        raise SystemExit(f"aln tools: {what}")
+
+
+def oneview_data(path):
+    """The data lines of a ONEcode file (oneview -h)."""
+    return run_cli("oneview", ["-h", path])[0]
+
+
+def aln_goldens(d, walls):
+    """Phase 13 (a): the C goldens through the tools, on the rearranged
+    pair aligned by fastga on the card and on phase 9's E/F .1aln."""
+    from fastga_tpu_torch import api
+    from fastga_tpu_torch.io import alncode
+    from fastga_tpu_torch.ops import cuda_build
+
+    def tool(name, argv, out_path=None):
+        out, err, walls[name] = run_cli(name.split()[0], argv, out_path)
+        return out, err
+
+    A, B = rearranged_fasta(d)
+    rr = os.path.join(d, "rr.1aln")
+    cuda_build.reset_launches()
+    tool("fastga rr", [f"-1:{rr}", A, B])
+    launches = dict(cuda_build.LAUNCHES)
+    aln_check(f"fastga on the rearranged pair launched {launches}",
+              all(launches[k] > 0 for k in KERNELS))
+    tool("fastga -Eref rr", ["-Eref", f"-1:{d}/rr_ref", A, B])
+    card, ref = read_records(rr), read_records(os.path.join(d, "rr_ref.1aln"))
+    aln_check(f"the card's records on the rearranged pair differ from "
+              f"-Eref's: {first_difference(ref, card)}",
+              list(map(record_fields, card)) == list(map(record_fields, ref)))
+
+    chain_gold = json.loads(golden("alnchain.json"))
+    for tag, flags in CHAIN_CASES:
+        out = os.path.join(d, f"rr.{tag}.1aln")
+        tool(f"alnchain {tag}", flags + [f"-o{out}", rr])
+        got = [list(record_fields(o)[:6]) for o in read_records(out)]
+        aln_check(f"alnchain {tag} differs from golden/alnchain.json",
+                  got == chain_gold[tag])
+    paf = os.path.join(d, "rrx.paf")
+    tool("alntopaf -x", ["-x", rr], out_path=paf)
+    imp = os.path.join(d, "imp")
+    os.makedirs(imp)
+    shutil.copy(paf, os.path.join(imp, "rr.paf"))
+    tool("paftoaln", [os.path.join(imp, "rr.paf"), A, B])
+    got = [list(record_fields(o)[:6]) + [int(o.bcomp), o.diffs]
+           for o in read_records(os.path.join(imp, "rr.1aln"))]
+    aln_check("paftoaln differs from golden/paftoaln.json",
+              got == json.loads(golden("paftoaln.json")))
+    psl, _ = tool("paftopsl", [paf])
+    aln_check("paftopsl differs from golden/paftopsl.txt",
+              psl == golden("paftopsl.txt"))
+    aln_check("alntopsl differs from the PAF -> PSL route",
+              tool("alntopsl rr", [rr])[0] == psl)
+    for args, name in PLOT_CASES:
+        sel = ["@1-", "@1"] if name == "plot_SW_sel.eps" else []
+        eps, _ = tool(f"alnplot {name}", args + [rr] + sel)
+        aln_check(f"alnplot {' '.join(args)} differs from golden/{name}",
+                  eps == golden(name))
+    log(f"aln tools: the rearranged pair through fastga on the card "
+        f"({len(card)} records, equal to -Eref's; launches "
+        f"{json.dumps(launches)}): alnchain x{len(CHAIN_CASES)}, paftoaln, "
+        f"paftopsl, alntopsl and alnplot x{len(PLOT_CASES)} equal to the C "
+        f"goldens")
+
+    run_dir = os.path.join(CLI_DIR, "run")
+    ef = os.path.join(run_dir, "EvF.1aln")
+    for pre, post, name in SHOW_CASES:
+        text, _ = tool(f"alnshow {name}", pre + [ef] + post)
+        aln_check(f"alnshow {' '.join(pre + post)} differs from golden/{name}",
+                  text == golden(name).replace("\nours:", "\nEvF:"))
+    aln_check("alntopsl EvF differs from golden/ref_psl.txt",
+              tool("alntopsl EvF", [ef])[0] == golden("ref_psl.txt"))
+    # oneview: binary -> ASCII -> binary -> ASCII keeps every data line
+    # and the records
+    a1, b1, a2 = (os.path.join(d, n) for n in ("a1.1aln", "b1.1aln",
+                                                 "a2.1aln"))
+    tool("oneview", ["-o", a1, ef])
+    tool("oneview -b", ["-b", "-o", b1, a1])
+    tool("oneview back", ["-o", a2, b1])
+    with open(a1) as f:
+        aln_check("oneview -o wrote binary", f.read(6) == "1 3 al")
+    data = oneview_data(ef)
+    aln_check("oneview ASCII -> binary -> ASCII changed the data lines",
+              oneview_data(a1) == oneview_data(a2) == oneview_data(b1) == data
+              and list(map(record_fields, read_records(b1)))
+              == list(map(record_fields, read_records(ef))))
+    # alnreset: new source lines, the same data lines
+    rs = os.path.join(d, "reset.1aln")
+    shutil.copy(ef, rs)
+    e_fa, f_fa = (os.path.join(run_dir, n) for n in ("E.fasta", "F.fasta"))
+    tool("alnreset", [rs, e_fa, f_fa])
+    af = alncode.read_aln(rs)
+    aln_check("alnreset did not rewrite the source lines or changed the data",
+              (af.db1_name, af.db2_name) == (e_fa, f_fa)
+              and oneview_data(rs) == data)
+    # AlnReader on the ONEalnTEST capture
+    gdir = os.path.join(GOLD_DIR, "onealn")
+    gold = json.loads(golden(os.path.join("onealn", "oracle.json")))
+    t0 = time.perf_counter()
+    r = api.AlnReader(os.path.join(gdir, "apigold.1aln"))
+    aln_check("AlnReader count", r.count == len(gold["cig_f"]))
+    for i in range(r.count):
+        rec = r[i]
+        buf = io.StringIO()
+        rec.show_alignment(buf, indent=8, width=100, border=10, coord=9,
+                           reversed=True)
+        got = (rec.cigar(show_x=True), rec.cigar(show_x=True, reversed=True),
+               rec.cs_tag(False, False), rec.cs_tag(False, True),
+               " ".join(map(str, rec.indel_array(False))),
+               " ".join(map(str, rec.indel_array(True))))
+        want = tuple(gold[k][i] for k in ("cig_f", "cig_r", "cs_f", "cs_r",
+                                          "ind_f", "ind_r"))
+        shown = buf.getvalue().rstrip("\n").split("\n")
+        aln_check(f"AlnReader record {i} differs from onealn/oracle.json",
+                  got == want
+                  and shown == gold["show_r"][i].split("\n")[:len(shown)])
+    walls["AlnReader apigold"] = time.perf_counter() - t0
+    log(f"aln tools: EvF.1aln through alnshow x{len(SHOW_CASES)} and alntopsl "
+        f"equal to the C goldens; oneview ASCII <-> binary and alnreset keep "
+        f"its {data.count(chr(10))} data lines; AlnReader on apigold.1aln "
+        f"equal to onealn/oracle.json ({r.count} records)")
+
+
+_CIGAR = re.compile(r"(\d+)([MIDX=])")
+_CS = re.compile(r"([=*+\-])([a-z]+)")
+
+
+def cigar_spans(cg):
+    """(seq1, seq2) bases an ONEaln CIGAR consumes: M, X, = and D the
+    first, M, X, = and I the second."""
+    ops = _CIGAR.findall(cg)
+    return (sum(int(n) for n, op in ops if op in "MX=D"),
+            sum(int(n) for n, op in ops if op in "MX=I"))
+
+
+def cs_spans(cs):
+    """(seq1, seq2) bases an ONEaln CS tag consumes: '=' runs both, '*'
+    pairs one each, '-' the first, '+' the second."""
+    a = b = 0
+    for op, s in _CS.findall(cs):
+        n = len(s) // 2 if op == "*" else len(s)
+        a += n if op in "=*-" else 0
+        b += n if op in "=*+" else 0
+    return a, b
+
+
+def aln_at_scale(d, walls):
+    """Phase 13 (b): the tools on phase 9's repeat-rich .1aln (the
+    main path's records, written by fastga on the card), held to
+    invariants."""
+    from fastga_tpu_torch import api
+    rr = os.path.join(CLI_DIR, "run", "repeatrich.1aln")
+    t0 = time.perf_counter()
+    reader = api.AlnReader(rr)
+    walls["AlnReader open"] = time.perf_counter() - t0
+    aln_check(f"AlnReader counts {reader.count} records",
+              reader.count == REPEAT_RICH_EXPECT[0])
+    ovls = reader._af.overlaps
+    t0 = time.perf_counter()
+    for i in range(AT_SCALE_CIGARS):
+        rec = reader[i]
+        spans = (rec.epos1 - rec.bpos1, abs(rec.epos2 - rec.bpos2))
+        cg, cs = rec.cigar(), rec.cs_tag()
+        aln_check(f"record {i}: CIGAR spans {cigar_spans(cg)}, CS spans "
+                  f"{cs_spans(cs)}, the record's {spans}",
+                  cigar_spans(cg) == cs_spans(cs) == spans)
+    walls[f"cigar + cs_tag x{AT_SCALE_CIGARS}"] = time.perf_counter() - t0
+
+    out = os.path.join(d, "repeatrich.chain.1aln")
+    _, err, walls["alnchain"] = run_cli("alnchain", [f"-o{out}", rr])
+    kept = read_records(out)
+    m = re.search(r"retained (\d+) alignments in (\d+) chains", err)
+    inputs = set(map(record_fields, ovls))
+    aln_check(f"alnchain keeps {len(kept)} records ({err.strip()}), each an "
+              f"input record: {all(record_fields(o) in inputs for o in kept)}",
+              m and int(m[1]) == len(kept) > 0
+              and all(record_fields(o) in inputs for o in kept))
+
+    eps = os.path.join(d, "repeatrich.eps")
+    _, _, walls["alnplot"] = run_cli("alnplot", [rr], out_path=eps)
+    with open(eps) as f:
+        nseg = sum(ln.endswith(" L\n") for ln in f)
+    # alnplot's defaults: both spans at least 100 bases, identity at least
+    # 0.7, and no length threshold under 100,000 records
+    passing = sum(
+        o.aepos - o.abpos >= 100 and o.bepos - o.bbpos >= 100
+        and 2.0 * ((o.aepos - o.abpos + o.bepos - o.bbpos - o.diffs) // 2)
+        / (o.aepos - o.abpos + o.bepos - o.bbpos) >= 0.7 for o in ovls)
+    aln_check(f"the EPS holds {nseg} segments for {passing} records past the "
+              f"filter", nseg == passing)
+
+    show, _, walls["alnshow @1"] = run_cli("alnshow", [rr, "@1"])
+    lines = show.splitlines()[2:]
+    want = sum(rec.seq1 == 1 for rec in reader)
+    aln_check(f"alnshow @1 lists {len(lines)} records, scaffold 1 has {want}",
+              len(lines) == want > 0)
+    log(f"aln tools at scale: repeatrich.1aln ({reader.count:,} records): "
+        f"alnchain keeps {len(kept):,} in {m[2]} chains, each an input "
+        f"record; the EPS {nseg:,} segments, one a record past the filter; "
+        f"alnshow @1 {len(lines):,} records; {AT_SCALE_CIGARS:,} CIGARs and "
+        f"CS tags with the records' spans")
+
+
+def phase_alntools():
+    """Phase 13: the alignment tools and the ONEaln library, in process,
+    on the .1aln files fastga writes on the card."""
+    t0 = time.perf_counter()
+    shutil.rmtree(ALN_DIR, ignore_errors=True)
+    os.makedirs(ALN_DIR)
+    walls = {}
+    aln_goldens(ALN_DIR, walls)
+    t_a = time.perf_counter() - t0
+    aln_at_scale(ALN_DIR, walls)
+    smi = smi_line()
+    for name, w in walls.items():
+        log(f"  wall[{name}]: {w:.3f} s ({smi})")
+    log(f"aln tools: phase {time.perf_counter() - t0:.1f} s (goldens "
+        f"{t_a:.1f} s)")
+
+
 def _params(**kw):
     from fastga_tpu_torch.models import aligner
     return aligner.FastGAParams(**kw)
@@ -2844,6 +3155,8 @@ def main(argv):
     phase_tools(gs_rr, host_tools)
     del gs_rr
     done(12)
+    phase_alntools()
+    done(13)
 
     summary = []
     for name, src, rep in (

@@ -659,9 +659,540 @@ def local_alignment(spec: AlignSpec, A, B, low, hgh, anti,
     return path
 
 
+def find_extension(spec: AlignSpec, A, B, diag: int, anti: int,
+                   lbord: int = -1, hbord: int = -1,
+                   prefix: bool = False) -> Path:
+    """Find_Extension (align.c:3774-3858): one-sided local alignment
+    from the point ((anti+diag)/2, (anti-diag)/2).
+
+    ``prefix`` extends left (reverse wave) and fills abpos/bbpos; else
+    right (forward wave) filling aepos/bepos.  The reference's
+    forward/reverse_extend are forward/reverse_wave specialised to a
+    single start diagonal, aoff=0, and reach-mode on (align.c diff
+    2714-3233 vs 352-877), so this delegates to those.
+    """
+    rspec = spec if spec.reach else AlignSpec(
+        spec.ave_corr, spec.trace_space, True, spec.freq)
+    minp = -INT32_MAX if lbord < 0 else diag - lbord
+    maxp = INT32_MAX if hbord < 0 else diag + hbord
+    path = Path()
+    if prefix:
+        reverse_wave(rspec, A, B, diag, diag, anti, minp, maxp, 0, path)
+        path.aepos = (anti + diag) >> 1
+        path.bepos = (anti - diag) >> 1
+    else:
+        forward_wave(rspec, A, B, diag, diag, anti, minp, maxp, 0, path)
+        path.abpos = (anti + diag) >> 1
+        path.bbpos = (anti - diag) >> 1
+    return path
+
+
 # ---------------------------------------------------------------------------
 # Wrap-around alignment (align.c:1585-2712): align B against A* = A
 # repeated with period P (FasTAN tandem-repeat support)
 # ---------------------------------------------------------------------------
 
 
+def _ctrunc_div(x: int, P: int) -> int:
+    """C-style truncating division (reference uses int division on
+    possibly negative wrap coordinates)."""
+    q = abs(x) // P
+    return q if x >= 0 else -q
+
+
+def _cmod(x: int, P: int) -> int:
+    return x % P if x >= 0 else -((-x) % P)
+
+
+def _snake_fwd_wrap(A, B, x, k, P):
+    """Forward match run of B[x-k..] against A* (A wrapped with period
+    P, align.c:1690-1706).  For x < 0 the reference's C trunc-mod makes
+    aseq[p] read the leading pad byte (4), which matches B's own pad —
+    the same boundary quirk as the reverse direction."""
+    lb = len(B)
+    while True:
+        y = x - k
+        if x < 0 or y < 0 or y >= lb:
+            bchar = _get(B, y)
+            achar = _get(A, _cmod(x, P)) if x < 0 else int(A[x % P])
+            if achar != bchar:
+                return x, bchar
+            x += 1
+            continue
+        p = x % P
+        lim = min(P - p, lb - y)
+        ax = A[p:p + lim]
+        bx = B[y:y + lim]
+        neq = ax != bx
+        if neq.any():
+            j = int(np.argmax(neq))
+            return x + j, int(bx[j])
+        x += lim
+
+
+def _snake_rev_wrap(A, B, x, k, P):
+    """Backward match run against periodic A*.  Mirrors the reference's
+    cyclic index walk (align.c:2100-2115) including its boundary quirk:
+    aseq is shifted by one, so p == 0 compares A's leading pad byte (4)
+    — which MATCHES B's own pad (4 == 4) and lets the alignment step one
+    column past the B start, exactly as the reference does with its
+    sentinel-padded contig buffers."""
+    p = x % P              # floor mod: cyclic walk continues below 0
+    while True:
+        bchar = _get(B, x - k - 1)
+        if _get(A, p - 1) != bchar:
+            return x, bchar
+        x -= 1
+        if p == 0:
+            p = P
+        p -= 1
+
+
+def forward_wrap(spec: AlignSpec, A, B, low, hgh, mida, minp, maxp, P,
+                 path: Path) -> int:
+    """Wrap-around forward pass: B against A*=A repeated with period P
+    (align.c forward_wrap 1585-2078; trace marks every P).  Returns the
+    seam diagonal."""
+    tspace = P
+    TABLE, SCORE, PATH_AVE = spec.table, spec.score, spec.ave_path
+    REACH = spec.reach
+
+    V, T, M, HA, NA = {}, {}, {}, {}, {}
+    cells = _Pebbles()
+
+    more = True
+    aclip, bclip = INT32_MAX, -INT32_MAX
+    besta = trima = morea = lasta = mida
+    bestx = trimx = morex = (mida + hgh) >> 1
+    trimd = mored = 0
+    trimha = moreha = 0
+    morem = -1
+    dif = 0
+
+    # wave 0
+    for k in range(hgh, low - 1, -1):
+        x = (mida + k) >> 1
+        na = _ctrunc_div(x, P) * P
+        ha = cells.push(-1, k, 0, na)
+        na += tspace
+        x, bc = _snake_fwd_wrap(A, B, x, k, P)
+        ac_ = 0
+        if bc == 4:
+            more = False
+            if bclip < k:
+                bclip = k
+        elif ac_ == 4:
+            more = False
+            aclip = k
+        c = (x << 1) - k
+        while x >= na:
+            ha = cells.push(ha, k, 0, na)
+            na += tspace
+        if c > besta:
+            besta = trima = lasta = c
+            bestx = trimx = x
+            trimha = ha
+        V[k], T[k], M[k], HA[k], NA[k] = c, PATH_INT, PATH_LEN, ha, na
+
+    if not more:
+        more = _get(B, besta - bestx) != 4
+        if low <= bclip:
+            low = bclip + 1
+            if morem <= M[bclip]:
+                morem, morea = M[bclip], V[bclip]
+                morex = (morea + bclip) >> 1
+                moreha = HA[bclip]
+        aclip, bclip = INT32_MAX, -INT32_MAX
+
+    while more and lasta >= besta - TRIM_MLAG:
+        low -= 1
+        hgh += 1
+        if low >= minp:
+            NA[low] = NA[low + 1]
+            V[low] = -1
+        else:
+            low += 1
+        if hgh <= maxp:
+            NA[hgh] = NA[hgh - 1]
+            V[hgh] = am = -1
+        else:
+            hgh -= 1
+            am = V[hgh]
+        dif += 1
+
+        ac = -1  # V[hgh+1] barrier
+        t, n, ua = PATH_INT, PATH_LEN, -1
+        for k in range(hgh, low - 1, -1):
+            ap = ac
+            ac = am
+            d = k - 1
+            am = V[d] if d >= low else -1
+
+            if ac < am:
+                if am < ap:
+                    c, m, b, ha = ap + 1, n, t, ua
+                else:
+                    c, m, b, ha = am + 1, M[d], T[d], HA[d]
+            else:
+                if ac < ap:
+                    c, m, b, ha = ap + 1, n, t, ua
+                else:
+                    c, m, b, ha = (ac + 2, M.get(k, PATH_LEN),
+                                   T.get(k, PATH_INT), HA.get(k, -1))
+
+            if b & PATH_TOP:
+                m -= 1
+            b = (b << 1) & U64
+
+            x = (c + k) >> 1
+            x2, bc = _snake_fwd_wrap(A, B, x, k, P)
+            ac_ = 0
+            # replay bit effects of the matched run
+            for _ in range(x2 - x):
+                if not (b & PATH_TOP):
+                    m += 1
+                b = ((b << 1) | 1) & U64
+            x = x2
+            if bc == 4:
+                more = False
+                if bclip < k:
+                    bclip = k
+            elif ac_ == 4:
+                more = False
+                aclip = k
+            c = (x << 1) - k
+
+            while x >= NA[k]:
+                if cells.mark[ha] < NA[k]:
+                    ha = cells.push(ha, k, dif, NA[k])
+                NA[k] += tspace
+
+            if c > besta:
+                besta, bestx = c, x
+                if m >= PATH_AVE:
+                    lasta = c
+                    if TABLE[b & TRIM_MASK] >= 0 and \
+                       TABLE[(b >> TRIM_LEN) & TRIM_MASK] + \
+                       SCORE[b & TRIM_MASK] >= 0:
+                        trima, trimx, trimd, trimha = c, x, dif, ha
+
+            # fresh band-edge cells may be read-but-never-used
+            # (the reference reads stale memory here, align.c:745-749)
+            t = T.get(k, PATH_INT)
+            n = M.get(k, PATH_LEN)
+            ua = HA.get(k, -1)
+            V[k], T[k], M[k], HA[k] = c, b, m, ha
+
+        if not more:
+            more = _get(B, besta - bestx) != 4
+            if low <= bclip:
+                low = bclip + 1
+                if morem <= M[bclip]:
+                    morem, morea = M[bclip], V[bclip]
+                    morex = (morea + bclip) >> 1
+                    mored = dif
+                    moreha = HA[bclip]
+            aclip, bclip = INT32_MAX, -INT32_MAX
+
+        nthr = besta - WAVE_LAG
+        while hgh >= low:
+            if V[hgh] < nthr:
+                hgh -= 1
+            else:
+                while V[low] < nthr:
+                    low += 1
+                break
+
+    # trace assembly (align.c:805-870)
+    if morem >= 0:
+        trimx, trimy, trimd, trimha = morex, morea - morex, mored, moreha
+    else:
+        trimy = trima - trimx
+
+    chain = []
+    h = trimha
+    while h >= 0:
+        chain.append(h)
+        h = cells.ptr[h]
+    chain.reverse()
+
+    h = chain[0]
+    k = cells.diag[h]
+    b = (mida - k) >> 1
+    e = 0
+    seam = k
+    for h in chain[1:]:
+        k = cells.diag[h]
+        a = cells.mark[h] - k
+        d = cells.diff[h]
+        path.trace.append((d - e, a - b))
+        b, e = a, d
+    if b + k != trimx:
+        path.trace.append((trimd - e, trimy - b))
+    elif b != trimy:
+        de, ab = path.trace[-1]
+        path.trace[-1] = (de + (trimd - e), ab + (trimy - b))
+
+    path.aepos = trimx
+    path.bepos = trimy
+    path.diffs = trimd
+    return seam
+
+
+def reverse_wrap(spec: AlignSpec, A, B, mind, maxd, mida, minp, maxp, P,
+                 path: Path):
+    """Wrap-around reverse pass (align.c reverse_wrap 2079-2593)."""
+    tspace = P
+    TABLE, SCORE, PATH_AVE = spec.table, spec.score, spec.ave_path
+    REACH = spec.reach
+
+    V, T, M, HA, NA = {}, {}, {}, {}, {}
+    cells = _Pebbles()
+
+    low, hgh = mind, maxd
+    more = True
+    aclip, bclip = -INT32_MAX, INT32_MAX
+    besta = trima = morea = lasta = mida
+    bestx = trimx = morex = (mida + hgh) >> 1
+    trimd = mored = 0
+    trimha = moreha = 0
+    morem = -1
+    dif = 0
+
+    for k in range(low, hgh + 1):
+        x = (mida + k) >> 1
+        na = _ctrunc_div(x, P) * P
+        ha = cells.push(-1, k, 0, x)
+        x, bc = _snake_rev_wrap(A, B, x, k, P)
+        ac_ = 0
+        if bc == 4:
+            more = False
+            if bclip > k:
+                bclip = k
+        elif ac_ == 4:
+            more = False
+            aclip = k
+        c = (x << 1) - k
+        while x <= na:
+            ha = cells.push(ha, k, 0, na)
+            na -= tspace
+        if c < besta:
+            besta = trima = lasta = c
+            bestx = trimx = x
+            trimha = ha
+        V[k], T[k], M[k], HA[k], NA[k] = c, PATH_INT, PATH_LEN, ha, na
+
+    if not more:
+        more = _get(B, besta - bestx - 1) != 4
+        if hgh >= bclip:
+            hgh = bclip - 1
+            if morem <= M[bclip]:
+                morem, morea = M[bclip], V[bclip]
+                morex = (morea + bclip) >> 1
+                moreha = HA[bclip]
+        aclip, bclip = -INT32_MAX, INT32_MAX
+
+    while more and lasta <= besta + TRIM_MLAG:
+        low -= 1
+        hgh += 1
+        if low >= minp:
+            NA[low] = NA[low + 1]
+            V[low] = ap = INT32_MAX
+        else:
+            low += 1
+            ap = V[low]
+        if hgh <= maxp:
+            NA[hgh] = NA[hgh - 1]
+            V[hgh] = INT32_MAX
+        else:
+            hgh -= 1
+        dif += 1
+
+        ac = INT32_MAX  # V[low-1] barrier
+        t, n, ua = PATH_INT, PATH_LEN, -1
+        for k in range(low, hgh + 1):
+            am = ac
+            ac = ap
+            d = k + 1
+            ap = V[d] if d <= hgh else INT32_MAX
+
+            if ac > ap:
+                if ap > am:
+                    c, m, b, ha = am - 1, n, t, ua
+                else:
+                    c, m, b, ha = ap - 1, M[d], T[d], HA[d]
+            else:
+                if ac > am:
+                    c, m, b, ha = am - 1, n, t, ua
+                else:
+                    c, m, b, ha = (ac - 2, M.get(k, PATH_LEN),
+                                   T.get(k, PATH_INT), HA.get(k, -1))
+
+            if b & PATH_TOP:
+                m -= 1
+            b = (b << 1) & U64
+
+            x = (c + k) >> 1
+            x2, bc = _snake_rev_wrap(A, B, x, k, P)
+            ac_ = 0
+            for _ in range(x - x2):
+                if not (b & PATH_TOP):
+                    m += 1
+                b = ((b << 1) | 1) & U64
+            x = x2
+            if bc == 4:
+                more = False
+                if bclip > k:
+                    bclip = k
+            elif ac_ == 4:
+                more = False
+                aclip = k
+            c = (x << 1) - k
+
+            while x <= NA[k]:
+                if cells.mark[ha] > NA[k]:
+                    ha = cells.push(ha, k, dif, NA[k])
+                NA[k] -= tspace
+
+            if c < besta:
+                besta, bestx = c, x
+                if m >= PATH_AVE:
+                    lasta = c
+                    if TABLE[b & TRIM_MASK] >= 0 and \
+                       TABLE[(b >> TRIM_LEN) & TRIM_MASK] + \
+                       SCORE[b & TRIM_MASK] >= 0:
+                        trima, trimx, trimd, trimha = c, x, dif, ha
+
+            # fresh band-edge cells may be read-but-never-used
+            # (the reference reads stale memory here, align.c:745-749)
+            t = T.get(k, PATH_INT)
+            n = M.get(k, PATH_LEN)
+            ua = HA.get(k, -1)
+            V[k], T[k], M[k], HA[k] = c, b, m, ha
+
+        if not more:
+            more = _get(B, besta - bestx - 1) != 4
+            if hgh >= bclip:
+                hgh = bclip - 1
+                if morem <= M[bclip]:
+                    morem, morea = M[bclip], V[bclip]
+                    morex = (morea + bclip) >> 1
+                    mored = dif
+                    moreha = HA[bclip]
+            aclip, bclip = -INT32_MAX, INT32_MAX
+
+        nthr = besta + WAVE_LAG
+        while hgh >= low:
+            if V[hgh] > nthr:
+                hgh -= 1
+            else:
+                while V[low] > nthr:
+                    low += 1
+                break
+
+    # trace assembly (align.c:1325-1414); prepends to path.trace
+    if morem >= 0:
+        trimx, trimy, trimd, trimha = morex, morea - morex, mored, moreha
+    else:
+        trimy = trima - trimx
+
+    chain = []
+    h = trimha
+    while h >= 0:
+        chain.append(h)
+        h = cells.ptr[h]
+    chain.reverse()
+
+    pre = []
+    hpos = 0
+    h = chain[hpos]
+    k = cells.diag[h]
+    b = cells.mark[h] - k
+    e = 0
+    if (b + k) % tspace != 0:
+        hpos += 1
+        if hpos >= len(chain):
+            a, d = trimy, trimd
+            hh = -1
+        else:
+            hh = chain[hpos]
+            k = cells.diag[hh]
+            a = cells.mark[hh] - k
+            d = cells.diff[hh]
+        if path.tlen == 0:
+            pre.append((d - e, b - a))
+        else:
+            de, ab = path.trace[0]
+            path.trace[0] = (de + (d - e), ab + (b - a))
+        b, e = a, d
+        if hpos >= len(chain):
+            chain = []
+        else:
+            chain = chain[hpos:]
+    if chain:
+        for h in chain[1:]:
+            k = cells.diag[h]
+            a = cells.mark[h] - k
+            d = cells.diff[h]
+            pre.append((d - e, b - a))
+            b, e = a, d
+        if b + k != trimx:
+            pre.append((trimd - e, b - trimy))
+        elif b != trimy:
+            de, ab = pre[-1] if pre else path.trace[0]
+            if pre:
+                pre[-1] = (de + (trimd - e), ab + (b - trimy))
+            else:
+                path.trace[0] = (de + (trimd - e), ab + (b - trimy))
+
+    # pre was built walking *backward* in A; prepend reversed
+    path.trace[:0] = pre[::-1]
+    path.abpos = trimx
+    path.bbpos = trimy
+    path.diffs += trimd
+
+
+
+
+def wrap_around_alignment(spec: AlignSpec, A, B, low, hgh, anti,
+                          lbord: int = -1, hbord: int = -1) -> Path:
+    """Wrap_Around_Alignment (align.c:2594-2712): local alignment of B
+    against A-wrapped (tandem array), same interface/return conventions
+    as local_alignment; path A coordinates live in A* space (may exceed
+    len(A))."""
+    alen = len(A)
+    path = Path()
+
+    while ((anti - hgh) >> 1) < 0:
+        hgh -= 1
+
+    minp = -INT32_MAX if lbord < 0 else low - lbord
+    maxp = INT32_MAX if hbord < 0 else hgh + hbord
+
+    seam = forward_wrap(spec, A, B, low, hgh, anti, minp, maxp, alen, path)
+    fshort = (path.aepos + path.bepos) - anti < DUB_TRIM
+
+    reverse_wrap(spec, A, B, seam, seam, anti, minp, maxp, alen, path)
+    rshort = anti - (path.abpos + path.bbpos) < DUB_TRIM
+
+    if fshort:
+        if rshort:
+            path.aepos = path.abpos = (path.abpos + path.aepos) >> 1
+            path.bepos = path.bbpos = (path.bbpos + path.bepos) >> 1
+            path.trace = []
+        else:
+            low2 = path.abpos - path.bbpos
+            anti2 = path.abpos + path.bbpos
+            path.trace = []
+            forward_wrap(spec, A, B, low2, low2, anti2, minp, maxp, alen,
+                         path)
+    else:
+        if rshort:
+            low2 = path.aepos - path.bepos
+            anti2 = path.aepos + path.bepos
+            path.trace = []
+            path.diffs = 0
+            reverse_wrap(spec, A, B, low2, low2, anti2, minp, maxp, alen,
+                         path)
+
+    return path

@@ -15,6 +15,7 @@ import copy
 import dataclasses
 import io
 import os
+import pkgutil
 import shutil
 import subprocess
 import sys
@@ -365,7 +366,22 @@ def _python_m(tool, args=(), hide_cards=False):
 
 TOOLS = ["fastga", "gixmake", "alntopaf", "fatogdb", "gdbshow", "gdbstat",
          "gdbtofa", "gixshow", "gixrm", "gixcp", "gixmv", "gixxfer", "fastks",
-         "anoshow", "anostat", "anotobed", "bedtoano"]
+         "anoshow", "anostat", "anotobed", "bedtoano", "alnshow", "alnplot",
+         "alnchain", "alnreset", "alntopsl", "paftoaln", "paftopsl",
+         "oneview"]
+
+
+def test_entries_match_jax_cli():
+    """The port has an entry for every `python -m fastga_tpu.cli.<tool>`,
+    and TOOLS runs each of them."""
+    import fastga_tpu.cli as jpkg
+    import fastga_tpu_torch.cli as tpkg
+
+    def entries(pkg):
+        return sorted(m.name for m in pkgutil.iter_modules(pkg.__path__)
+                      if not m.name.startswith("_"))
+
+    assert entries(tpkg) == entries(jpkg) == sorted(TOOLS)
 
 
 @pytest.mark.parametrize("tool", TOOLS)

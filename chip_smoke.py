@@ -147,8 +147,26 @@ Phases (every one runs; any failure exits non-zero before the summary):
    its filter) and alnshow @1 (one line a record of scaffold 1), each
    tool's wall time logged with the card's line.
 
-The second-to-last line is the per-kernel JSON summary, the last line the
-device summary.
+14. the sharded seed route (fastga_tpu_torch.parallel), every run on the
+   one card: (a) a one-rank NCCL group in this process: sharded_tubes on
+   the repeat-rich pair gives phase 5's TubeBatch (22,902,602 seeds), on A
+   as self the host path's self TubeBatch (54,119,834 seeds, phase 10's),
+   and align_genomes(mesh=) phase 5's records with stats["sharded"] == 1
+   and every kernel launched; (b) two gloo ranks sharing the card
+   (spawned processes, distributed.init): the repeat-rich pair through
+   sharded_tubes and align_genomes(mesh=) on each rank, phase 5's
+   TubeBatch and records, each rank's peak device memory and times; (c)
+   four gloo ranks: the uniform pair, phase 4's TubeBatch and records, and
+   mesh.py's three steps at __graft_entry__.py's shapes against one rank's
+   computation; (d) merge_path and fused_scan against their plain
+   versions, bit for bit, on the largest input of each column count and
+   scan spec (a) gave them, with kernel ms, plain ms and the byte bound.
+   No run across several cards is made: NCCL between cards and the
+   exchange's cost over NVLink stay unmeasured.
+
+The second-to-last line is the per-kernel JSON summary (launches: the
+uniform main path's plus phase 14 (a)'s align_genomes(mesh=)), the last
+line the device summary.
 """
 
 import contextlib
@@ -3077,6 +3095,333 @@ def phase_alntools():
         f"{t_a:.1f} s)")
 
 
+# -- phase 14: the sharded seed route (fastga_tpu_torch/parallel) ------------
+
+SHARD_DIR = os.path.join(HERE, "fastga_tpu_torch", "_build", "sharded")
+# seconds a group of spawned ranks may take, and a collective may wait
+SHARD_TIMEOUT = 300
+SHARD_SPANS = ("devpipe.gix1", "devpipe.gix2", "devpipe.exchange",
+               "devpipe.merge", "devpipe.chain")
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def timed_route(fn, *args, **kw):
+    """One call on the card: (result, seconds, peak device memory above
+    the allocation at its start, GiB)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0,
+            (torch.cuda.max_memory_allocated() - base) / 2**30)
+
+
+def sharded_seeds(mesh, g1, g2):
+    """sharded_tubes on the card with the spans on: (result, seconds, peak
+    GiB, {span: seconds})."""
+    from fastga_tpu_torch.parallel import sharded
+    from fastga_tpu_torch.utils import prof
+    prof.ENABLED = True
+    prof.reset()
+    try:
+        res, dt, peak = timed_route(sharded.sharded_tubes, g1, g2,
+                                    alens_of(g1), mesh)
+        rep = prof.report()
+    finally:
+        prof.ENABLED = False
+    if res is None:
+        raise SystemExit(f"sharded_tubes at {mesh.size} ranks declined")
+    return res, dt, peak, {k: rep[k][0] for k in SHARD_SPANS if k in rep}
+
+
+def sharded_one(gs_rr, rr_tubes, host_self, run_rr):
+    """Phase 14 (a): a one-rank NCCL group in this process.  The
+    repeat-rich pair through sharded_tubes gives phase 5's TubeBatch, A as
+    self the host path's self TubeBatch (phase 10's), and
+    align_genomes(mesh=) phase 5's records with stats["sharded"] == 1 and
+    every kernel launched.  Returns the launches and the capture of the
+    seed kernels' inputs (part d)."""
+    import datetime
+
+    import torch.distributed as td
+
+    from fastga_tpu_torch.ops import cuda_build
+    from fastga_tpu_torch.parallel import sharded
+    td.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT))
+    try:
+        mesh = sharded.make_mesh(1)
+        if (mesh.backend, mesh.device.type) != ("nccl", "cuda"):
+            raise SystemExit(f"sharded D=1: mesh {mesh}")
+        # NCCL sets its communicator up at the first collective
+        t0 = time.perf_counter()
+        td.barrier()
+        log(f"sharded D=1: NCCL communicator set-up (the first "
+            f"collective) {time.perf_counter() - t0:.3f} s")
+        g1, g2 = gs_rr[:2]
+        with SeedCapture() as cap:
+            got, dt, peak, spans = sharded_seeds(mesh, g1, g2)
+            same_tubes("sharded D=1 repeatrich", rr_tubes, got,
+                       "phase 5 device_tubes")
+            log(f"sharded D=1 repeatrich: sharded_tubes {dt:.3f} s, peak "
+                f"device memory {peak:.3f} GiB, spans {json.dumps(spans)}")
+            got, dt, peak, spans = sharded_seeds(mesh, g1, None)
+            check_host_self(got, host_self)
+            log(f"sharded D=1 self: sharded_tubes {dt:.3f} s, peak device "
+                f"memory {peak:.3f} GiB, spans {json.dumps(spans)}")
+            cuda_build.reset_launches()
+            ovls, stats, wall = run_main_path("sharded1", g1, g2, mesh=mesh)
+            launches = dict(cuda_build.LAUNCHES)
+        digest = records_digest(ovls)
+        del ovls
+        check_launches("sharded1", launches)
+        check_seeds("sharded1", stats, REPEAT_RICH_SEEDS)
+        if (stats.get("sharded") != 1 or digest != run_rr["digest"]
+                or (stats["nlive"], stats["cov"]) != REPEAT_RICH_EXPECT):
+            same = digest == run_rr["digest"]
+            raise SystemExit(f"sharded1: stats {stats}; records "
+                             f"{'equal' if same else 'differ'}")
+        log(f"sharded D=1: align_genomes(mesh=) {wall:.3f} s, "
+            f"{stats['nlive']:,} records equal to phase 5's, "
+            f"stats['sharded'] {stats['sharded']}")
+    finally:
+        td.destroy_process_group()
+    return launches, cap
+
+
+def graft_pool(nt, seqlen, seed=7):
+    """__graft_entry__.py's synthetic tubes (``_synthetic``): nt pairs of
+    seqlen bases, B 2% mutated, in one pool; (pool words as int32, aw, bw,
+    lengths)."""
+    from fastga_tpu_torch.ops import seqpack
+    rng = np.random.default_rng(seed)
+    seqs = {}
+    for i in range(nt):
+        A = rng.integers(0, 4, seqlen).astype(np.uint8)
+        B = A.copy()
+        mut = rng.random(seqlen) < 0.02
+        B[mut] = (B[mut] + rng.integers(1, 4, mut.sum())) % 4
+        seqs[("A", i)] = A
+        seqs[("B", i)] = B
+    pool = seqpack.SeqPool.build(seqs)
+    aw = np.array([pool.offs[("A", i)][0] for i in range(nt)], np.int32)
+    bw = np.array([pool.offs[("B", i)][0] for i in range(nt)], np.int32)
+    return (np.asarray(pool.words, np.uint32).view(np.int32), aw, bw,
+            np.full(nt, seqlen, np.int32))
+
+
+def mesh_steps(mesh):
+    """mesh.py's three steps at __graft_entry__.py's shapes (4 tubes of
+    2 kb a rank at W=64 and 8 waves; 4,096 bases a rank; [D, D, 8, 4]
+    seed blocks), each against the same computation on one rank: the
+    whole batch through the plain kernel versions on the host, every
+    shard's syncmers by numpy, the exchange as a transpose.  Returns what
+    differs and the live count."""
+    import torch
+
+    from fastga_tpu_torch.ops import syncmer, wave, wave_kernels as wk
+    from fastga_tpu_torch.ops.wave_ref import AlignSpec
+    from fastga_tpu_torch.parallel import mesh as pmesh
+    D, r = mesh.size, mesh.rank
+    nt = 4 * D
+    words, aw, bw, ln = graft_pool(nt, 2048)
+    cols = [torch.as_tensor(x) for x in (
+        words, aw, ln, bw, ln, np.full(nt, -2, np.int32),
+        np.full(nt, 2, np.int32), np.full(nt, 2048, np.int32))]
+    spec = AlignSpec(0.7)
+    cfg = wave.WaveConfig(n=4, w=64, chunk=8, max_chunks=2)
+    trima, alive = pmesh.sharded_wave_step(
+        pmesh.make_mesh(D, device=mesh.device), spec, cfg)(*cols)
+    pool, aw_, ln_, bw_, _, dgmin, dgmax, anti = cols
+    targs = (aw_, ln_, bw_, ln_, torch.full_like(aw_, -(1 << 30)),
+             torch.full_like(aw_, 1 << 30))
+    st = wk.wave0(pool, targs, dgmin, dgmax, anti, torch.ones_like(aw_),
+                  cfg.w, +1)
+    st, _, _ = wk.wave_chunk(pool, targs, st, spec, +1, cfg.chunk)
+    bad = []
+    if not np.array_equal(trima.cpu().numpy().astype(np.int64),
+                          st[10][4 * r:4 * (r + 1)].numpy()
+                          .astype(np.int64)) \
+            or int(alive) != int(st[15].sum()):
+        bad.append("wave step")
+    bases = np.random.default_rng(3).integers(0, 4, (D, 1, 4096)) \
+        .astype(np.int32)
+    hist = pmesh.sharded_seed_histogram(mesh)(
+        torch.as_tensor(bases), torch.full((D, 1), 4096, dtype=torch.int32))
+    want = np.zeros(1024, np.int64)
+    for b in bases[:, 0].astype(np.int64):
+        b10 = (b[:-4] << 8) | (b[1:-3] << 6) | (b[2:-2] << 4) \
+            | (b[3:-1] << 2) | b[4:]
+        want += np.bincount(b10[syncmer.syncmer_positions(
+            b.astype(np.uint8))], minlength=1024)
+    if not np.array_equal(hist.cpu().numpy(), want[None]):
+        bad.append("histogram")
+    seeds = np.arange(D * D * 8 * 4, dtype=np.int32).reshape(D, D, 8, 4)
+    ex = pmesh.sharded_seed_exchange(mesh, D)(torch.as_tensor(seeds))
+    if not np.array_equal(ex.cpu().numpy(), seeds[:, r][None]):
+        bad.append("exchange")
+    return bad, int(alive)
+
+
+def shard_rank(D, rank, port, scenario, out_dir):
+    """One rank of phase 14 (b)/(c), a spawned process on the card: a gloo
+    group (ranks that share a card), the scenario's pair through
+    sharded_tubes and align_genomes(mesh=), at (c) mesh.py's steps; its
+    results, peak device memory and times to a file."""
+    import pickle
+
+    import torch
+    import torch.distributed as td
+
+    from fastga_tpu_torch.models import aligner
+    from fastga_tpu_torch.ops import cuda_build
+    from fastga_tpu_torch.parallel import distributed
+    t0 = time.perf_counter()
+    if not distributed.init(f"127.0.0.1:{port}", D, rank,
+                            timeout=SHARD_TIMEOUT):
+        raise SystemExit("distributed.init found no configuration")
+    mesh = distributed.global_mesh()
+    if (mesh.backend, mesh.device.type, mesh.size) != ("gloo", "cuda", D):
+        raise SystemExit(f"rank {rank}: mesh {mesh}")
+    g1, g2 = (uniform_gdbs() if scenario == "uniform"
+              else repeat_rich(REPEAT_RICH_MBP)[:2])
+    cuda_build.build_kernels()
+    td.barrier()
+    t_ready = time.perf_counter() - t0
+    got, t_seed, peak_seed, spans = sharded_seeds(mesh, g1, g2)
+    cuda_build.reset_launches()
+    (ovls, stats), t_align, peak_align = timed_route(
+        aligner.align_genomes, g1, g2, mesh=mesh)
+    launches = dict(cuda_build.LAUNCHES)
+    out = dict(tubes=got, digest=records_digest(ovls),
+               records=(len(ovls), sum(o.aepos - o.abpos for o in ovls)),
+               stats={k: v for k, v in stats.items()
+                      if isinstance(v, (int, float, str))},
+               launches=launches, t_ready=t_ready, t_seed=t_seed,
+               t_align=t_align, peak_seed=peak_seed, peak_align=peak_align,
+               spans=spans)
+    del ovls
+    if scenario == "uniform":
+        out["mesh"] = mesh_steps(mesh)
+    with open(os.path.join(out_dir, f"{scenario}{D}_{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    td.barrier()
+    td.destroy_process_group()
+
+
+def spawn_ranks(D, scenario):
+    """D spawned ranks on the one card (the parent holds a CUDA context, so
+    not forked); any rank that fails, or a group past SHARD_TIMEOUT, stops
+    them all and the script.  Returns each rank's results and the wall."""
+    import multiprocessing
+    import pickle
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    os.makedirs(SHARD_DIR)
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    t0 = time.perf_counter()
+    ps = [ctx.Process(target=shard_rank,
+                      args=(D, r, port, scenario, SHARD_DIR))
+          for r in range(D)]
+    for p in ps:
+        p.start()
+    try:
+        while any(p.is_alive() for p in ps):
+            if any(p.exitcode not in (None, 0) for p in ps) \
+                    or time.perf_counter() - t0 > SHARD_TIMEOUT:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in ps:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    codes = [p.exitcode for p in ps]
+    if codes != [0] * D:
+        raise SystemExit(f"sharded {scenario} D={D}: ranks exited {codes} "
+                         f"after {time.perf_counter() - t0:.1f} s")
+    res = []
+    for r in range(D):
+        with open(os.path.join(SHARD_DIR, f"{scenario}{D}_{r}.pkl"),
+                  "rb") as f:
+            res.append(pickle.load(f))
+    return res, time.perf_counter() - t0
+
+
+def check_ranks(what, res, want_tubes, run, expect, wall):
+    """Every rank's TubeBatch, records and stats against the single-device
+    run's; logs each rank's times, peak memory and spans."""
+    D = len(res)
+    for r, o in enumerate(res):
+        same_tubes(f"{what} rank {r}", want_tubes, o["tubes"],
+                   "single-device route")
+        st = o["stats"]
+        if (o["digest"] != run["digest"] or o["records"] != expect
+                or st.get("sharded") != D
+                or st.get("seed_pipeline") != "device"):
+            raise SystemExit(f"{what} rank {r}: records {o['records']} "
+                             f"(digest equal: {o['digest'] == run['digest']})"
+                             f", stats {st}")
+        log(f"  {what} rank {r}: ready {o['t_ready']:.1f} s; sharded_tubes "
+            f"{o['t_seed']:.3f} s, peak device memory {o['peak_seed']:.3f} "
+            f"GiB, spans {json.dumps(o['spans'])}; align_genomes(mesh=) "
+            f"{o['t_align']:.3f} s, peak {o['peak_align']:.3f} GiB; "
+            f"launches {json.dumps(o['launches'])}")
+    log(f"{what}: {D} gloo ranks on one card, every rank's TubeBatch and "
+        f"{expect[0]:,} records ({expect[1]:,} bp) equal to the "
+        f"single-device run's, stats['sharded'] {D}; the route's wall "
+        f"{wall:.1f} s (the ranks' start included)")
+
+
+def phase_sharded(gs_rr, rr_tubes, u_tubes, host_self, run_rr, run_u):
+    """Phase 14: the sharded seed route.  (a) one NCCL rank in this
+    process; (b) two gloo ranks sharing the card, repeat-rich; (c) four,
+    uniform, and mesh.py's steps; (d) merge_path and fused_scan against
+    their plain versions on the largest inputs (a) gave them."""
+    import torch
+    t0 = time.perf_counter()
+    log("sharded route: every run below is on ONE card; no run across "
+        "several cards was made (NCCL between cards and the exchange's "
+        "cost over NVLink are not measured)")
+    launches, cap = sharded_one(gs_rr, rr_tubes, host_self, run_rr)
+    t_a = time.perf_counter() - t0
+    merge, scan = {}, {}
+    cap.fold_into(merge, scan)
+    del cap
+    drop_device_tables(gs_rr[:2])
+    torch.cuda.empty_cache()
+    res, wall = spawn_ranks(2, "repeatrich")
+    check_ranks("sharded D=2 repeatrich", res, rr_tubes, run_rr,
+                REPEAT_RICH_EXPECT, wall)
+    res, wall = spawn_ranks(4, "uniform")
+    check_ranks("sharded D=4 uniform", res, u_tubes, run_u, UNIFORM_EXPECT,
+                wall)
+    for r, o in enumerate(res):
+        bad, alive = o["mesh"]
+        if bad:
+            raise SystemExit(f"mesh.py at 4 ranks, rank {r}: {bad} differ "
+                             f"from one rank's computation")
+    log(f"mesh.py at 4 ranks: sharded_wave_step ({alive} live tubes of 16), "
+        f"sharded_seed_histogram and sharded_seed_exchange equal to one "
+        f"rank's computation on every rank")
+    kern = seed_kernel_rows(merge, scan, "sharded")
+    log(f"sharded route: phase {time.perf_counter() - t0:.1f} s ((a) "
+        f"{t_a:.1f} s)")
+    return launches, kern
+
+
 def _params(**kw):
     from fastga_tpu_torch.models import aligner
     return aligner.FastGAParams(**kw)
@@ -3142,8 +3487,10 @@ def main(argv):
     done(8)
     phase_cli(run_u, run_rr, gs_rr)
     done(9)
+    host_self = refs.pop("self")
     launches_s, launches_b, _ = phase_seed_routes(
-        gs_rr[0], rr_ref, u_ref, refs.pop("self"))
+        gs_rr[0], rr_ref, u_ref, host_self)
+    u_tubes = u_ref[0]
     del u_ref
     done(10)
     host_tools = refs.pop("tools")
@@ -3151,12 +3498,16 @@ def main(argv):
     del refs
     done(11)
     launches_c = phase_past_caps(gs_rr, rr_ref, run_rr, run_u)
+    rr_tubes = rr_ref[0]
     del rr_ref
     phase_tools(gs_rr, host_tools)
-    del gs_rr
     done(12)
     phase_alntools()
     done(13)
+    launches_sh, _ = phase_sharded(gs_rr, rr_tubes, u_tubes, host_self,
+                                   run_rr, run_u)
+    del gs_rr, rr_tubes, u_tubes, host_self
+    done(14)
 
     summary = []
     for name, src, rep in (
@@ -3173,7 +3524,8 @@ def main(argv):
         k = kern[name]
         summary.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
-            launches=launches[name], max_abs_err=k["max_abs_err"],
+            launches=launches[name] + launches_sh[name],
+            max_abs_err=k["max_abs_err"],
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=None,
             equal=k["max_abs_err"] == 0))
@@ -3182,6 +3534,8 @@ def main(argv):
             f"{n} {launches[n]} / {launches_rr[n]} / {launches_s[n]} / "
             f"{launches_b[n]} / {launches_m['-M'][n]} / "
             f"{launches_m['-S'][n]}" for n in KERNELS))
+    log("launches of the sharded route (phase 14 (a), align_genomes(mesh=) "
+        "at world size 1): " + json.dumps(launches_sh))
     log("launches past the caps (chain panels / contig windows; GIX "
         "entries past N / panel rescans): "
         + ", ".join(f"{n} " + " / ".join(str(launches_c[c].get(n, 0))

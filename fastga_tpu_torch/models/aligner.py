@@ -33,6 +33,7 @@ from ..ops import device_pipeline as devp
 from ..ops import merge as mergem
 from ..ops import wave_ref
 from ..ops.constants import KMER
+from ..parallel import sharded as shardm
 from ..utils import dna, prof
 
 TSPACE = 100
@@ -74,7 +75,8 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
                   params: FastGAParams = FastGAParams(),
                   engine: str = "torch", device=None, cfg=None,
                   verbose: bool = False,
-                  symmetric: bool = False) -> Tuple[List[Overlap], dict]:
+                  symmetric: bool = False,
+                  mesh=None) -> Tuple[List[Overlap], dict]:
     """Full FastGA comparison; returns (overlaps in output order, stats).
 
     Pass the same gdb (or table) twice for self-comparison (seeds from
@@ -99,7 +101,14 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
     seeded on the host, as is every run of ``engine="ref"``; once a route
     has uploaded, it finishes on the device, and an error there raises.
     ``stats["seed_pipeline"]`` says which ran, and ``verbose`` prints it
-    on stderr."""
+    on stderr.
+
+    ``mesh`` (parallel.sharded.make_mesh or distributed.global_mesh; every
+    rank of its group calls align_genomes) seeds a pair or a self
+    comparison without masks, ``symmetric`` or a self ``t1`` through the
+    sharded pipeline over the ranks (parallel/sharded.py), with
+    ``stats["sharded"]`` the number of ranks; each rank then runs the wave
+    phase on its own card and returns the same records."""
     if engine not in ("ref", "torch"):
         raise ValueError(f"unknown wave engine '{engine}' "
                          f"(expected 'ref' or 'torch')")
@@ -146,10 +155,14 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
                 elif t2 is None:
                     t2 = build_gix(gdb2)
             tables = (t1, t2)
+        sharded = (mesh is not None and not has_masks and not symmetric
+                   and not (selfcmp and t1 is not None))
         dres = _device_seeds(gdb1, None if selfcmp else gdb2, tables,
                              alens_by_rank, amax, bmax, params, symmetric,
-                             dev)
+                             dev, mesh if sharded else None)
         if dres is not None:
+            if sharded:
+                stats["sharded"] = mesh.size
             tubes, nseeds, plsum = dres
             stats["nseeds"] = nseeds
             stats["seed_len_avg"] = (plsum / nseeds) if nseeds else 0.0
@@ -232,8 +245,9 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
 
 
 def _device_seeds(gdb1, gdb2, tables, alens_by_rank, amax, bmax, params,
-                  symmetric, dev):
+                  symmetric, dev, mesh=None):
     """Tubes from the device seed pipeline, on the route the input takes:
+    the sharded pipeline over the ranks of ``mesh`` when one is given;
     host GIX tables (``tables`` = (t1, t2), t2 t1 for self) uploaded by
     ``device_tubes_tables``, with the -S flip pass for a pair; a pair with
     ``symmetric`` by ``device_tubes(symmetric=True)``; otherwise the
@@ -245,6 +259,9 @@ def _device_seeds(gdb1, gdb2, tables, alens_by_rank, amax, bmax, params,
               chain_min=params.chain_min, device=dev)
     devp.DECLINE = None
     with prof.span("aligner.devpipe"):
+        if mesh is not None:
+            return shardm.sharded_tubes(gdb1, gdb2, alens_by_rank, mesh,
+                                        **kw)
         if tables is not None:
             return devp.device_tubes_tables(
                 tables[0], tables[1], alens_by_rank, amax, bmax,

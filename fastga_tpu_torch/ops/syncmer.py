@@ -1,4 +1,5 @@
-# Copied from fastga_tpu/ops/syncmer.py; imports point at fastga_tpu_torch.
+# Copied from fastga_tpu/ops/syncmer.py; imports point at fastga_tpu_torch;
+# syncmer_mask is the port of its syncmer_mask_jnp.
 """(12,8)-closed-syncmer selection — the GIX sampling rule, as vector ops.
 
 Semantics derived from the reference's rolling automaton (scan_thread
@@ -17,8 +18,9 @@ A selected j yields a forward index entry (40-mer starting at j, post=j) when
 j <= len-40, and a reverse-complement entry (40-mer ending at j+11, post=j+12,
 per setup_thread_plain GIXmake.c:925-941) when j >= 28.
 
-Both a numpy implementation (host bulk builds) and a jittable jnp version
-(device pipelines) are provided; they are semantically identical.
+Both a numpy implementation (host bulk builds) and a tensor version
+(``syncmer_mask``, on any torch device) are provided; they are
+semantically identical.
 """
 
 from __future__ import annotations
@@ -74,6 +76,34 @@ def index_entries(bases: np.ndarray, kmer: int = KMER
     return fwd, rc
 
 
-# -- jnp device version ------------------------------------------------------
+# -- tensor version ----------------------------------------------------------
+
+def syncmer_mask(bases, length):
+    """Bool tensor over positions [0, N-11) marking closed syncmers, on the
+    device of ``bases`` (int32/uint8 tensor of shape (N,), padded);
+    ``length``: the actual length.  Positions >= length-TMER+1 are masked
+    False."""
+    import torch
+
+    dev = bases.device
+    tmap = torch.as_tensor(TMAP.astype(np.int64), device=dev)
+    comp = torch.as_tensor(COMP.astype(np.int64), device=dev)
+    b = bases.to(torch.int64)
+    n = b.shape[0]
+    n4 = ((b[: n - 3] << 6) | (b[1 : n - 2] << 4)
+          | (b[2 : n - 1] << 2) | b[3:])
+    tf = tmap[n4]
+    tc = tmap[comp[n4]]
+    nv = n4.shape[0] - 4
+    fwd = (tf[:nv] << 8) | tf[4 : 4 + nv]
+    rev = (tc[4 : 4 + nv] << 8) | tc[:nv]
+    v = torch.minimum(fwd, rev)
+    nw = nv - SOFF
+    m = v[:nw]
+    for k in range(1, SOFF + 1):
+        m = torch.minimum(m, v[k : k + nw])
+    sel = (v[:nw] == m) | (v[SOFF : SOFF + nw] == m)
+    j = torch.arange(nw, device=dev)
+    return sel & (j <= length - TMER)
 
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 
 # Base numbering (matches reference order 'acgt').
+BASE_ORDER = b"acgt"
+SENTINEL = 4
 
 # ASCII -> numeric code; non-acgt (incl. N) maps to 255 so callers can detect.
 _ASCII_TO_CODE = np.full(256, 255, dtype=np.uint8)
@@ -35,7 +37,9 @@ for _c in b"acgt":
 _IS_ACGT = np.zeros(256, dtype=bool)
 for _c in b"acgtACGT":
     _IS_ACGT[_c] = True
+_IS_UPPER = _IS_ACGT & ~_IS_LOWER
 IS_LOWER = _IS_LOWER
+IS_ACGT = _IS_ACGT
 
 
 def compress(codes: np.ndarray) -> np.ndarray:
@@ -83,3 +87,16 @@ def to_ascii(codes: np.ndarray, upper: bool = False) -> bytes:
     return table[np.asarray(codes, dtype=np.uint8)].tobytes()
 
 
+def from_ascii(seq: bytes | np.ndarray) -> np.ndarray:
+    """ASCII -> numeric codes; non-acgt become 255 (callers decide N handling)."""
+    if isinstance(seq, (bytes, bytearray, memoryview)):
+        seq = np.frombuffer(seq, dtype=np.uint8)
+    return ASCII_TO_CODE[seq]
+
+
+def base_frequencies(codes: np.ndarray) -> np.ndarray:
+    """Frequency of a,c,g,t among the coded (non-255) bases; float64[4]."""
+    valid = codes[codes < 4]
+    if len(valid) == 0:
+        return np.full(4, 0.25)
+    return np.bincount(valid, minlength=4)[:4] / len(valid)

@@ -27,6 +27,7 @@ convertible to in-memory GDBs via ``to_gdb`` or FASTA via
 
 from __future__ import annotations
 
+import gzip
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -210,3 +211,21 @@ def to_gdb(name: str, contigs: List[np.ndarray],
     return g, ivals
 
 
+def write_fasta(fn: str, contigs: List[np.ndarray], prefix: str,
+                masks: Optional[List[np.ndarray]] = None,
+                width: int = 70):
+    """Write contigs as (optionally gzipped) FASTA; mask intervals are
+    lowercased (implicit softmask, GDB.c:851-1022 semantics)."""
+    ACGT = np.frombuffer(b"ACGT", np.uint8)
+    acgt_l = np.frombuffer(b"acgt", np.uint8)
+    op = gzip.open if fn.endswith(".gz") else open
+    with op(fn, "wt") as f:
+        for i, s in enumerate(contigs):
+            f.write(f">{prefix}{i}\n")
+            chars = ACGT[s].copy()
+            if masks is not None and len(masks[i]):
+                for b, e in masks[i]:
+                    chars[b:e] = acgt_l[s[b:e]]
+            txt = chars.tobytes().decode()
+            for j in range(0, len(txt), width):
+                f.write(txt[j:j + width] + "\n")

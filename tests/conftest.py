@@ -52,6 +52,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips without one)")
+
+
 def pytest_collection_modifyitems(config, items):
     if not DEVICE_LANE:
         return

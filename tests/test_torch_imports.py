@@ -27,6 +27,8 @@ def test_port_imports_no_jax():
         "anoshow", "anostat", "anotobed", "bedtoano")} <= set(mods)
     assert {"fastga_tpu_torch.utils.select",
             "fastga_tpu_torch.utils.fmt"} <= set(mods)
+    assert {f"fastga_tpu_torch.parallel.{m}" for m in (
+        "distributed", "sharded", "mesh")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -86,15 +88,17 @@ def test_device_seeds_neither_raise_on_caps_nor_catch():
     """Past the JAX package's caps after upload the device seed pipeline
     sizes to its counts: no helper that raises on a cap is left in the
     package, the pipeline has no host chain sweep to fall back to, and
-    neither the pipeline nor the aligner that routes it catches an
-    exception (an error on the card reaches the caller)."""
+    neither the pipeline, its sharded route nor the aligner that routes
+    them catches an exception (an error on the card reaches the
+    caller)."""
     pkg = os.path.join(ROOT, "fastga_tpu_torch")
     for d, _, files in os.walk(pkg):
         for f in files:
             if f.endswith(".py"):
                 with open(os.path.join(d, f)) as fh:
                     assert "_over_cap" not in fh.read(), f
-    for rel in ("ops/device_pipeline.py", "models/aligner.py"):
+    for rel in ("ops/device_pipeline.py", "models/aligner.py",
+                "parallel/sharded.py"):
         with open(os.path.join(pkg, rel)) as fh:
             tree = ast.parse(fh.read())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], rel

@@ -1,0 +1,8 @@
+"""Percent of the traced window in which no operation ran on the card
+(one less the union of device activity over the window)."""
+
+
+def read(ctx):
+    if ctx.busy_s is None or not ctx.window_s:
+        return None
+    return 100.0 * (1.0 - ctx.busy_s / ctx.window_s)

@@ -12,6 +12,8 @@ import sys
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
+from ..utils import prof
+
 FASTA_EXTS = (".fa", ".fasta", ".fna", ".fa.gz", ".fasta.gz", ".fna.gz")
 
 
@@ -128,55 +130,58 @@ def resolve_genome(path: str, nthreads: int = 8, keep: bool = False,
     from ..io import gdb as gdbm
     from ..io import gix as gixm
 
-    t, p = infer_source(path)
-    root = _root(p)
-    if t == "gix":
-        gdb = gdbm.read_gdb(root)
-        table = gixm.read_gix(root)
-        return gdb, table
-    if t == "gdb":
-        gdb = gdbm.read_gdb(root)
-        masks = None
-    else:
-        if verbose:
-            sys.stderr.write(f"  Creating genome data base (GDB) {root}.1gdb"
-                             f"{' (in memory)' if not keep else ''}\n")
-        gdb, masks = gdbm.create_gdb(p, target=root if keep else None)
-        if keep and masks:
-            # FAtoGDB persists the implicit case-mask (FAtoGDB.c:115-125)
-            anom.write_ano(str(root) + ".1ano", gdb, masks)
-
-    gix_masks = None
-    if mask_files:
-        lists = []
-        for m in mask_files:
-            mp = m if m else str(root) + ".1ano"
-            lists.append(anom.read_ano(mp, gdb))
-        gix_masks = anom.ano_union(lists)
-    elif soft_mask:
-        ano_file = Path(str(root) + ".1ano")
-        if ano_file.exists():
-            gix_masks = anom.read_ano(ano_file, gdb)
-        elif masks:
-            gix_masks = masks
-
-    gixp = Path(str(root) + ".gix")
-    if gixp.exists() and not gix_masks:
-        table = gixm.read_gix(root)
-    elif lazy and not keep and not gix_masks:
-        table = None       # the device pipeline builds the index
-    else:
-        if verbose:
-            sys.stderr.write(f"  Creating genome index (GIX) {root}.gix"
-                             f"{' (in memory)' if not keep else ''}\n")
-        if not gix_masks and nthreads == 8:
-            from ..ops.device_pipeline import build_gix_device
-            table = build_gix_device(gdb, device)
+    with prof.span("cli.resolve_genome"):
+        t, p = infer_source(path)
+        root = _root(p)
+        if t == "gix":
+            gdb = gdbm.read_gdb(root)
+            table = gixm.read_gix(root)
+            return gdb, table
+        if t == "gdb":
+            gdb = gdbm.read_gdb(root)
+            masks = None
         else:
-            table = gixm.build_gix(gdb, nthreads=nthreads, masks=gix_masks)
-        if keep:
-            gixm.write_gix(table, root, nthreads=nthreads)
-    return gdb, table
+            if verbose:
+                sys.stderr.write(f"  Creating genome data base (GDB) "
+                                 f"{root}.1gdb"
+                                 f"{' (in memory)' if not keep else ''}\n")
+            gdb, masks = gdbm.create_gdb(p, target=root if keep else None)
+            if keep and masks:
+                # FAtoGDB persists the implicit case-mask (FAtoGDB.c:115-125)
+                anom.write_ano(str(root) + ".1ano", gdb, masks)
+
+        gix_masks = None
+        if mask_files:
+            lists = []
+            for m in mask_files:
+                mp = m if m else str(root) + ".1ano"
+                lists.append(anom.read_ano(mp, gdb))
+            gix_masks = anom.ano_union(lists)
+        elif soft_mask:
+            ano_file = Path(str(root) + ".1ano")
+            if ano_file.exists():
+                gix_masks = anom.read_ano(ano_file, gdb)
+            elif masks:
+                gix_masks = masks
+
+        gixp = Path(str(root) + ".gix")
+        if gixp.exists() and not gix_masks:
+            table = gixm.read_gix(root)
+        elif lazy and not keep and not gix_masks:
+            table = None       # the device pipeline builds the index
+        else:
+            if verbose:
+                sys.stderr.write(f"  Creating genome index (GIX) {root}.gix"
+                                 f"{' (in memory)' if not keep else ''}\n")
+            if not gix_masks and nthreads == 8:
+                from ..ops.device_pipeline import build_gix_device
+                table = build_gix_device(gdb, device)
+            else:
+                table = gixm.build_gix(gdb, nthreads=nthreads,
+                                       masks=gix_masks)
+            if keep:
+                gixm.write_gix(table, root, nthreads=nthreads)
+        return gdb, table
 
 
 def resolve_gdb(path: str, verbose: bool = False):

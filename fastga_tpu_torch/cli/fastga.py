@@ -34,7 +34,7 @@ from . import _common
 from .._version import VERSION
 from ..io import alncode, paf, psl
 from ..models import aligner
-from ..utils import dna
+from ..utils import dna, prof
 
 USAGE = ("[-vkMS] [-L:<log:path>] [-T<int(8)>] [-P<dir>] "
          "[<format(-paf)>] [-f<int(10)>] [-c<int(85)>] [-s<int(1000)>] "
@@ -44,6 +44,11 @@ USAGE = ("[-vkMS] [-L:<log:path>] [-T<int(8)>] [-P<dir>] "
 
 
 def main(argv=None, device=None) -> int:
+    with prof.job():
+        return _main(argv, device)
+
+
+def _main(argv, device):
     argv = sys.argv[1:] if argv is None else argv
 
     # pre-pass: multi-char format options, -L:, and #mask arguments
@@ -131,8 +136,7 @@ def main(argv=None, device=None) -> int:
         log.write(f"\n{cmd}\n")
 
     t0 = time.time()
-    from ..utils import prof as profm
-    timer = profm.PhaseTimer(
+    timer = prof.PhaseTimer(
         out=[sys.stderr if verbose else None, log]) if (verbose or log) \
         else None
     lazy = engine == "torch" and not soft_mask
@@ -170,51 +174,54 @@ def main(argv=None, device=None) -> int:
         log.write(stat_text)
         log.close()
 
-    if out_type == "one":
-        out = one_name if one_name.endswith(".1aln") else one_name + ".1aln"
-        selfcmp = len(pos) == 1
-        w = alncode.AlnWriter(out, params.tspace,
-                              str(Path(pos[0]).resolve()),
-                              None if selfcmp
-                              else str(Path(pos[1]).resolve()),
-                              str(Path.cwd()), command=cmd)
-        w.write_skeleton(gdb1)
-        if not selfcmp:
-            w.write_skeleton(gdb2)
-        for o in ovls:
-            w.write_overlap(o)
-        w.close()
+    with prof.span("io.write"):
+        prof.count("io.records", len(ovls))
+        if out_type == "one":
+            out = (one_name if one_name.endswith(".1aln")
+                   else one_name + ".1aln")
+            selfcmp = len(pos) == 1
+            w = alncode.AlnWriter(out, params.tspace,
+                                  str(Path(pos[0]).resolve()),
+                                  None if selfcmp
+                                  else str(Path(pos[1]).resolve()),
+                                  str(Path.cwd()), command=cmd)
+            w.write_skeleton(gdb1)
+            if not selfcmp:
+                w.write_skeleton(gdb2)
+            for o in ovls:
+                w.write_overlap(o)
+            w.close()
+            return 0
+
+        # sequence caches for exact-trace emission (PAF cigar/cs, PSL)
+        acache, bcache = {}, {}
+
+        def get_a(c):
+            if c not in acache:
+                acache.clear()
+                acache[c] = gdb1.get_contig(c)
+            return acache[c]
+
+        def get_b(c, comp):
+            key = (c, comp)
+            if key not in bcache:
+                bcache.clear()
+                s = gdb2.get_contig(c)
+                bcache[key] = dna.revcomp(s) if comp else s
+            return bcache[key]
+
+        if out_type == "psl":
+            psl.write_psl(ovls, gdb1, gdb2, get_a, get_b, params.tspace,
+                          sys.stdout)
+        elif paf_m or paf_x or paf_s or paf_l:
+            for o in ovls:
+                sys.stdout.write(paf.paf_line_exact(
+                    o, gdb1, gdb2, get_a(o.aread), get_b(o.bread, o.bcomp),
+                    params.tspace, cigar_m=paf_m, cigar_x=paf_x,
+                    cs=paf_l, cs_short=paf_s) + "\n")
+        else:
+            paf.write_paf(ovls, gdb1, gdb2, sys.stdout)
         return 0
-
-    # sequence caches for exact-trace emission (PAF cigar/cs, PSL)
-    acache, bcache = {}, {}
-
-    def get_a(c):
-        if c not in acache:
-            acache.clear()
-            acache[c] = gdb1.get_contig(c)
-        return acache[c]
-
-    def get_b(c, comp):
-        key = (c, comp)
-        if key not in bcache:
-            bcache.clear()
-            s = gdb2.get_contig(c)
-            bcache[key] = dna.revcomp(s) if comp else s
-        return bcache[key]
-
-    if out_type == "psl":
-        psl.write_psl(ovls, gdb1, gdb2, get_a, get_b, params.tspace,
-                      sys.stdout)
-    elif paf_m or paf_x or paf_s or paf_l:
-        for o in ovls:
-            sys.stdout.write(paf.paf_line_exact(
-                o, gdb1, gdb2, get_a(o.aread), get_b(o.bread, o.bcomp),
-                params.tspace, cigar_m=paf_m, cigar_x=paf_x,
-                cs=paf_l, cs_short=paf_s) + "\n")
-    else:
-        paf.write_paf(ovls, gdb1, gdb2, sys.stdout)
-    return 0
 
 
 if __name__ == "__main__":

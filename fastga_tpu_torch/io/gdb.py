@@ -28,7 +28,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from ..utils import dna
+from ..utils import dna, prof
 from . import onecode
 
 GDB_SCHEMA_TEXT = """\
@@ -186,95 +186,99 @@ def create_gdb(fasta_path, target=None, ncut: int = 0,
     runs < ncut kept as 'a' in-contig, >= ncut split contigs as gaps, trailing
     runs dropped, all-lowercase input yields no masks.
     """
-    gdb = GDB()
-    gdb.srcpath = str(Path(fasta_path).resolve())
-    masks: List[MaskIval] = []
-    counts = np.zeros(4, dtype=np.int64)
-    packed_chunks: List[np.ndarray] = []
-    boff = 0
-    saw_upper = False
+    with prof.span("gdb.create"):
+        gdb = GDB()
+        gdb.srcpath = str(Path(fasta_path).resolve())
+        masks: List[MaskIval] = []
+        counts = np.zeros(4, dtype=np.int64)
+        packed_chunks: List[np.ndarray] = []
+        boff = 0
+        saw_upper = False
 
-    for header, raw in _read_fasta_scaffolds(fasta_path):
-        codes = dna.ASCII_TO_CODE[raw]
-        is_base = codes < 4
-        # drop trailing non-acgt run (reference drops it from slen entirely)
-        nb = len(raw)
-        if nb and not is_base[-1]:
-            last = nb - 1
-            # find last base
-            idx = np.flatnonzero(is_base)
-            nb = int(idx[-1]) + 1 if len(idx) else 0
-            raw = raw[:nb]
-            codes = codes[:nb]
-            is_base = is_base[:nb]
-        if nb == 0:
-            raise ValueError(f"{fasta_path}: scaffold '{header}' has no sequence")
+        for header, raw in _read_fasta_scaffolds(fasta_path):
+            codes = dna.ASCII_TO_CODE[raw]
+            is_base = codes < 4
+            # drop trailing non-acgt run (the reference drops it from slen
+            # entirely)
+            nb = len(raw)
+            if nb and not is_base[-1]:
+                last = nb - 1
+                # find last base
+                idx = np.flatnonzero(is_base)
+                nb = int(idx[-1]) + 1 if len(idx) else 0
+                raw = raw[:nb]
+                codes = codes[:nb]
+                is_base = is_base[:nb]
+            if nb == 0:
+                raise ValueError(
+                    f"{fasta_path}: scaffold '{header}' has no sequence")
 
-        lower = dna.IS_LOWER[raw]
-        saw_upper = saw_upper or bool((is_base & ~lower).any())
+            lower = dna.IS_LOWER[raw]
+            saw_upper = saw_upper or bool((is_base & ~lower).any())
 
-        vals, starts, lens = _runs(is_base)
-        fctg = gdb.ncontig
-        spos = 0
-        # assemble contigs: consecutive base-runs merged across short N-runs
-        cur_codes: List[np.ndarray] = []
-        cur_lower: List[np.ndarray] = []
-        cur_sbeg = 0
+            vals, starts, lens = _runs(is_base)
+            fctg = gdb.ncontig
+            spos = 0
+            # assemble contigs: consecutive base-runs merged across short
+            # N-runs
+            cur_codes: List[np.ndarray] = []
+            cur_lower: List[np.ndarray] = []
+            cur_sbeg = 0
 
-        def flush_contig():
-            nonlocal boff, spos
-            if cur_codes:
-                cc = np.concatenate(cur_codes)
-                ll = np.concatenate(cur_lower)
-            else:
-                cc = np.zeros(0, dtype=np.uint8)
-                ll = np.zeros(0, dtype=bool)
-            ci = gdb.ncontig
-            gdb.contigs.append(Contig(len(cc), cur_sbeg, boff, gdb.nscaff))
-            if len(cc):
-                counts[:] += np.bincount(cc, minlength=4)[:4]
-                pk = dna.compress(cc)
-                packed_chunks.append(pk)
-                boff += len(pk)
-                gdb.maxctg = max(gdb.maxctg, len(cc))
-                mv, ms, mlen = _runs(ll)
-                for v, s0, l0 in zip(mv, ms, mlen):
-                    if v:
-                        masks.append(MaskIval(ci, int(s0), int(s0 + l0)))
-
-        i = 0
-        nruns = len(vals)
-        while i < nruns:
-            v, s0, l0 = bool(vals[i]), int(starts[i]), int(lens[i])
-            if v:
-                cur_codes.append(codes[s0 : s0 + l0])
-                cur_lower.append(lower[s0 : s0 + l0])
-            else:
-                if l0 < ncut:
-                    # short N-run kept as 'a' bases, counted as base 0
-                    cur_codes.append(np.zeros(l0, dtype=np.uint8))
-                    cur_lower.append(np.zeros(l0, dtype=bool))
+            def flush_contig():
+                nonlocal boff, spos
+                if cur_codes:
+                    cc = np.concatenate(cur_codes)
+                    ll = np.concatenate(cur_lower)
                 else:
-                    flush_contig()
-                    spos = s0 + l0
-                    cur_sbeg = spos
-                    cur_codes, cur_lower = [], []
-            i += 1
-        flush_contig()
-        gdb.scaffolds.append(Scaffold(nb, fctg, gdb.ncontig, header))
+                    cc = np.zeros(0, dtype=np.uint8)
+                    ll = np.zeros(0, dtype=bool)
+                ci = gdb.ncontig
+                gdb.contigs.append(Contig(len(cc), cur_sbeg, boff, gdb.nscaff))
+                if len(cc):
+                    counts[:] += np.bincount(cc, minlength=4)[:4]
+                    pk = dna.compress(cc)
+                    packed_chunks.append(pk)
+                    boff += len(pk)
+                    gdb.maxctg = max(gdb.maxctg, len(cc))
+                    mv, ms, mlen = _runs(ll)
+                    for v, s0, l0 in zip(mv, ms, mlen):
+                        if v:
+                            masks.append(MaskIval(ci, int(s0), int(s0 + l0)))
 
-    if not saw_upper:
-        masks = []
+            i = 0
+            nruns = len(vals)
+            while i < nruns:
+                v, s0, l0 = bool(vals[i]), int(starts[i]), int(lens[i])
+                if v:
+                    cur_codes.append(codes[s0 : s0 + l0])
+                    cur_lower.append(lower[s0 : s0 + l0])
+                else:
+                    if l0 < ncut:
+                        # short N-run kept as 'a' bases, counted as base 0
+                        cur_codes.append(np.zeros(l0, dtype=np.uint8))
+                        cur_lower.append(np.zeros(l0, dtype=bool))
+                    else:
+                        flush_contig()
+                        spos = s0 + l0
+                        cur_sbeg = spos
+                        cur_codes, cur_lower = [], []
+                i += 1
+            flush_contig()
+            gdb.scaffolds.append(Scaffold(nb, fctg, gdb.ncontig, header))
 
-    gdb.seqtot = int(counts.sum())
-    if gdb.seqtot > 0:
-        gdb.freq = counts / gdb.seqtot
-    gdb._bps = (np.concatenate(packed_chunks) if packed_chunks
-                else np.zeros(0, dtype=np.uint8))
+        if not saw_upper:
+            masks = []
 
-    if target is not None:
-        write_gdb(gdb, target)
-    return gdb, masks
+        gdb.seqtot = int(counts.sum())
+        if gdb.seqtot > 0:
+            gdb.freq = counts / gdb.seqtot
+        gdb._bps = (np.concatenate(packed_chunks) if packed_chunks
+                    else np.zeros(0, dtype=np.uint8))
+
+        if target is not None:
+            write_gdb(gdb, target)
+        return gdb, masks
 
 
 def write_gdb(gdb: GDB, target, provenance_cmd: str = "") -> Path:

@@ -44,6 +44,7 @@ import numpy as np
 
 from ..ops import syncmer
 from ..ops.constants import COMP, KMER, LCPB
+from ..utils import prof
 from .gdb import GDB
 
 PREFIX_BITS = 24
@@ -134,18 +135,45 @@ def build_gix(gdb: GDB, kmer: int = KMER, masks=None,
     the persisted perm/ncontig) and the NPARTS choice at write time.
     """
     assert kmer % 4 == 0
+    with prof.span("gix.build"):
+        kb = kmer // 4
+        lens = gdb.contig_lengths()
+        # short_GDB_fix: pad with fake KMER-length contigs up to nthreads
+        nfake = max(0, nthreads - len(lens))
+        lens_eff = np.concatenate([lens,
+                                   np.full(nfake, kmer, dtype=np.int64)])
+        perm, invp = _length_perm(lens_eff)
+
+        mask_by_ctg = {}
+        if masks:
+            for m in masks:
+                mask_by_ctg.setdefault(m.contig, []).append((m.beg, m.end))
+
+        with prof.span("gix.entries"):
+            kbytes, post, cont, comp, maskb = _entries(gdb, lens, invp,
+                                                       mask_by_ctg, kmer)
+        with prof.span("gix.sort"):
+            kbytes, post, cont, comp, maskb = _sort_entries(
+                kbytes, post, cont, comp, maskb)
+        with prof.span("gix.lcp"):
+            lcp = _compute_lcp(kbytes, kmer)
+            prefix_index = _prefix_index(kbytes)
+        prof.count("gix.entries", len(post))
+
+        return GixTable(
+            kmer=kmer, kbytes=kbytes, post=post, cont=cont, comp=comp,
+            lcp=lcp, maskb=maskb, prefix_index=prefix_index, perm=perm,
+            post_bytes=_bytes_for(int(lens_eff.max()) if len(lens_eff)
+                                  else 1),
+            cont_bytes=_bytes_for(2 * len(lens_eff)),
+            seqtot=gdb.seqtot + nfake * kmer,
+        )
+
+
+def _entries(gdb, lens, invp, mask_by_ctg, kmer):
+    """Every contig's syncmer entries, unsorted: (k-mer bytes, post, contig
+    rank, comp, masked-prefix byte)."""
     kb = kmer // 4
-    lens = gdb.contig_lengths()
-    # short_GDB_fix: pad with fake KMER-length contigs up to nthreads
-    nfake = max(0, nthreads - len(lens))
-    lens_eff = np.concatenate([lens, np.full(nfake, kmer, dtype=np.int64)])
-    perm, invp = _length_perm(lens_eff)
-
-    mask_by_ctg = {}
-    if masks:
-        for m in masks:
-            mask_by_ctg.setdefault(m.contig, []).append((m.beg, m.end))
-
     all_bytes: List[np.ndarray] = []
     all_post: List[np.ndarray] = []
     all_cont: List[np.ndarray] = []
@@ -175,11 +203,12 @@ def build_gix(gdb: GDB, kmer: int = KMER, masks=None,
             all_comp.append(np.ones(len(rc), dtype=bool))
         nf, nr = len(fwd), len(rc)
         if mask_by_ctg.get(r):
-            cov = np.zeros(clen + 1, dtype=np.int8)
-            for b, e in mask_by_ctg[r]:
-                cov[b:e] = 1
-            mb_f = _masked_prefix(cov, fwd, kmer, False)
-            mb_r = _masked_prefix(cov, rc, kmer, True)
+            with prof.span("gix.maskb"):
+                cov = np.zeros(clen + 1, dtype=np.int8)
+                for b, e in mask_by_ctg[r]:
+                    cov[b:e] = 1
+                mb_f = _masked_prefix(cov, fwd, kmer, False)
+                mb_r = _masked_prefix(cov, rc, kmer, True)
         else:
             mb_f = np.zeros(nf, dtype=np.uint8)
             mb_r = np.zeros(nr, dtype=np.uint8)
@@ -188,22 +217,20 @@ def build_gix(gdb: GDB, kmer: int = KMER, masks=None,
         if nr:
             all_maskb.append(mb_r)
 
-    if all_bytes:
-        kbytes = np.concatenate(all_bytes)
-        post = np.concatenate(all_post)
-        cont = np.concatenate(all_cont)
-        comp = np.concatenate(all_comp)
-        maskb = np.concatenate(all_maskb)
-    else:
-        kbytes = np.zeros((0, kb), dtype=np.uint8)
-        post = np.zeros(0, dtype=np.int32)
-        cont = np.zeros(0, dtype=np.int32)
-        comp = np.zeros(0, dtype=bool)
-        maskb = np.zeros(0, dtype=np.uint8)
+    if not all_bytes:
+        return (np.zeros((0, kb), dtype=np.uint8), np.zeros(0, np.int32),
+                np.zeros(0, np.int32), np.zeros(0, bool),
+                np.zeros(0, np.uint8))
+    return (np.concatenate(all_bytes), np.concatenate(all_post),
+            np.concatenate(all_cont), np.concatenate(all_comp),
+            np.concatenate(all_maskb))
 
-    # global sort by (kmer, cont, post, comp): two stable argsorts — the
-    # tie key (cont, post, comp) packs into int64, then khi+klo as a
-    # second stable pass — instead of a 5-key lexsort
+
+def _sort_entries(kbytes, post, cont, comp, maskb):
+    """The entries in the table's order, (kmer, cont, post, comp): two
+    stable argsorts -- the tie key (cont, post, comp) packs into int64,
+    then khi+klo as a second stable pass -- instead of a 5-key lexsort."""
+    kb = kbytes.shape[1]
     khi = kbytes[:, :8].copy().view(">u8").reshape(-1)
     klo = (kbytes[:, 8:kb].copy().view(f">u{max(kb-8,1)}").reshape(-1)
            if kb > 8 else np.zeros(len(post), dtype=np.uint8))
@@ -220,23 +247,8 @@ def build_gix(gdb: GDB, kmer: int = KMER, masks=None,
         order = o2[np.argsort(khi[o2], kind="stable")]
     else:
         order = np.lexsort((comp, post, cont, klo, khi))
-    kbytes = kbytes[order]
-    post = post[order]
-    cont = cont[order]
-    comp = comp[order]
-    maskb = maskb[order]
-
-    lcp = _compute_lcp(kbytes, kmer)
-    prefix_index = _prefix_index(kbytes)
-
-    return GixTable(
-        kmer=kmer, kbytes=kbytes, post=post, cont=cont, comp=comp,
-        lcp=lcp, maskb=maskb, prefix_index=prefix_index, perm=perm,
-        post_bytes=_bytes_for(int(lens_eff.max()) if len(lens_eff) else 1),
-        cont_bytes=_bytes_for(2 * len(lens_eff)),
-        seqtot=gdb.seqtot + nfake * kmer,
-    )
-
+    return (kbytes[order], post[order], cont[order], comp[order],
+            maskb[order])
 
 def _masked_prefix(cov: np.ndarray, posts: np.ndarray, kmer: int,
                    is_rc: bool) -> np.ndarray:

@@ -109,139 +109,141 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
     sharded pipeline over the ranks (parallel/sharded.py), with
     ``stats["sharded"]`` the number of ranks; each rank then runs the wave
     phase on its own card and returns the same records."""
-    if engine not in ("ref", "torch"):
-        raise ValueError(f"unknown wave engine '{engine}' "
-                         f"(expected 'ref' or 'torch')")
-    dev = resolve_device(device) if engine == "torch" else None
-    selfcmp = (t2 is t1 and t1 is not None) or gdb2 is gdb1
-    stats = {}
-    spec = wave_ref.AlignSpec(1.0 - params.align_rate, params.tspace,
-                              False, tuple(gdb1.freq))
-    lens1 = gdb1.contig_lengths()
-    lens2 = gdb2.contig_lengths()
-    amax = int(lens1.max()) if len(lens1) else 1
-    bmax = int(lens2.max()) if len(lens2) else 1
-    kmer0 = t1.kmer if t1 is not None else KMER
+    with prof.span("aligner.align_genomes"):
+        if engine not in ("ref", "torch"):
+            raise ValueError(f"unknown wave engine '{engine}' "
+                             f"(expected 'ref' or 'torch')")
+        dev = resolve_device(device) if engine == "torch" else None
+        selfcmp = (t2 is t1 and t1 is not None) or gdb2 is gdb1
+        stats = {}
+        spec = wave_ref.AlignSpec(1.0 - params.align_rate, params.tspace,
+                                  False, tuple(gdb1.freq))
+        lens1 = gdb1.contig_lengths()
+        lens2 = gdb2.contig_lengths()
+        amax = int(lens1.max()) if len(lens1) else 1
+        bmax = int(lens2.max()) if len(lens2) else 1
+        kmer0 = t1.kmer if t1 is not None else KMER
 
-    def _perm_of(t, lens):
-        # a table's contig order, else the host tables': descending
-        # length, padded with fake KMER-length contigs to 8 (build_gix's
-        # short-GDB fix)
-        if t is not None:
-            return np.asarray(t.perm)
-        lens_eff = np.concatenate(
-            [lens, np.full(max(0, 8 - len(lens)), kmer0, np.int64)])
-        return np.asarray(_length_perm(lens_eff)[0])
+        def _perm_of(t, lens):
+            # a table's contig order, else the host tables': descending
+            # length, padded with fake KMER-length contigs to 8 (build_gix's
+            # short-GDB fix)
+            if t is not None:
+                return np.asarray(t.perm)
+            lens_eff = np.concatenate(
+                [lens, np.full(max(0, 8 - len(lens)), kmer0, np.int64)])
+            return np.asarray(_length_perm(lens_eff)[0])
 
-    perm1 = _perm_of(t1, lens1)
-    perm2 = perm1 if selfcmp else _perm_of(t2, lens2)
-    # rank -> length (fake short-fix ranks map to their KMER length)
-    alens_by_rank = np.where(perm1 < len(lens1), lens1[np.minimum(
-        perm1, len(lens1) - 1)], kmer0)
-    has_masks = (params.soft_mask
-                 or (t1 is not None and t1.maskb.any())
-                 or (t2 is not None and not selfcmp and t2.maskb.any()))
+        perm1 = _perm_of(t1, lens1)
+        perm2 = perm1 if selfcmp else _perm_of(t2, lens2)
+        # rank -> length (fake short-fix ranks map to their KMER length)
+        alens_by_rank = np.where(perm1 < len(lens1), lens1[np.minimum(
+            perm1, len(lens1) - 1)], kmer0)
+        has_masks = (params.soft_mask
+                     or (t1 is not None and t1.maskb.any())
+                     or (t2 is not None and not selfcmp and t2.maskb.any()))
 
-    tubes = None
-    if engine == "torch":
-        tables = None
-        if has_masks or (selfcmp and t1 is not None):
-            # host tables go up whole: the mask bytes exist only there
+        tubes = None
+        if engine == "torch":
+            tables = None
+            if has_masks or (selfcmp and t1 is not None):
+                # host tables go up whole: the mask bytes exist only there
+                with prof.span("aligner.gix"):
+                    if t1 is None:
+                        t1 = build_gix(gdb1)
+                    if selfcmp:
+                        t2 = t1
+                    elif t2 is None:
+                        t2 = build_gix(gdb2)
+                tables = (t1, t2)
+            sharded = (mesh is not None and not has_masks and not symmetric
+                       and not (selfcmp and t1 is not None))
+            dres = _device_seeds(gdb1, None if selfcmp else gdb2, tables,
+                                 alens_by_rank, amax, bmax, params, symmetric,
+                                 dev, mesh if sharded else None)
+            if dres is not None:
+                if sharded:
+                    stats["sharded"] = mesh.size
+                tubes, nseeds, plsum = dres
+                stats["nseeds"] = nseeds
+                stats["seed_len_avg"] = (plsum / nseeds) if nseeds else 0.0
+                stats["seed_pipeline"] = "device"
+            else:
+                # never silent: the reference takes any -f / contig count
+                reason = devp.DECLINE
+                sys.stderr.write(
+                    f"fastga_tpu: device seed pipeline declined ({reason}); "
+                    f"using host seed pipeline\n")
+                stats["seed_decline"] = reason
+        if tubes is None:
             with prof.span("aligner.gix"):
                 if t1 is None:
                     t1 = build_gix(gdb1)
+                if t2 is None:
+                    t2 = t1 if selfcmp else build_gix(gdb2)
+            with prof.span("aligner.merge"):
                 if selfcmp:
-                    t2 = t1
-                elif t2 is None:
-                    t2 = build_gix(gdb2)
-            tables = (t1, t2)
-        sharded = (mesh is not None and not has_masks and not symmetric
-                   and not (selfcmp and t1 is not None))
-        dres = _device_seeds(gdb1, None if selfcmp else gdb2, tables,
-                             alens_by_rank, amax, bmax, params, symmetric,
-                             dev, mesh if sharded else None)
-        if dres is not None:
-            if sharded:
-                stats["sharded"] = mesh.size
-            tubes, nseeds, plsum = dres
-            stats["nseeds"] = nseeds
-            stats["seed_len_avg"] = (plsum / nseeds) if nseeds else 0.0
-            stats["seed_pipeline"] = "device"
+                    seeds = mergem.self_adaptamer_seeds(
+                        t1, freq=params.freq, soft_mask=params.soft_mask)
+                else:
+                    seeds = mergem.adaptamer_seeds(
+                        t1, t2, freq=params.freq, soft_mask=params.soft_mask)
+                    if symmetric:
+                        extra = mergem.adaptamer_seeds_flip(
+                            t1, t2, freq=params.freq,
+                            soft_mask=params.soft_mask)
+                        seeds = mergem.SeedBatch(*[
+                            np.concatenate([getattr(seeds, f),
+                                            getattr(extra, f)])
+                            for f in ("plen", "acont", "apost", "bcont",
+                                      "bpost", "bcomp")])
+            stats["nseeds"] = seeds.n
+            stats["seed_len_avg"] = (
+                float(seeds.plen.astype(np.float64).mean())
+                if seeds.n else 0.0)
+            stats["seed_pipeline"] = "host"
+            with prof.span("aligner.chain"):
+                tubes = chainm.chain_tubes(seeds, amax, bmax, alens_by_rank,
+                                           chain_break=params.chain_break,
+                                           chain_min=params.chain_min)
+        if verbose:
+            sys.stderr.write(f"  Seed pipeline: {stats['seed_pipeline']}\n")
+        stats["nhits"] = tubes.n
+
+        seq_cache: Dict[Tuple[int, int], np.ndarray] = {}
+
+        def get_a(rank: int, comp: bool) -> np.ndarray:
+            key = (rank, comp)
+            if key not in seq_cache:
+                s = gdb1.get_contig(int(perm1[rank]))
+                seq_cache[key] = dna.revcomp(s) if comp else s
+            return seq_cache[key]
+
+        def get_b(rank: int) -> np.ndarray:
+            key = (rank, None)
+            if key not in seq_cache:
+                seq_cache[key] = gdb2.get_contig(int(perm2[rank]))
+            return seq_cache[key]
+
+        if engine == "torch":
+            groups = _device_align(gdb1, gdb2, tubes, perm1, perm2, lens1,
+                                   lens2, spec, params, get_a, get_b, stats,
+                                   selfcmp, dev, cfg)
         else:
-            # never silent: the reference takes any -f / contig count
-            reason = devp.DECLINE
-            sys.stderr.write(
-                f"fastga_tpu: device seed pipeline declined ({reason}); "
-                f"using host seed pipeline\n")
-            stats["seed_decline"] = reason
-    if tubes is None:
-        with prof.span("aligner.gix"):
-            if t1 is None:
-                t1 = build_gix(gdb1)
-            if t2 is None:
-                t2 = t1 if selfcmp else build_gix(gdb2)
-        with prof.span("aligner.merge"):
-            if selfcmp:
-                seeds = mergem.self_adaptamer_seeds(
-                    t1, freq=params.freq, soft_mask=params.soft_mask)
-            else:
-                seeds = mergem.adaptamer_seeds(
-                    t1, t2, freq=params.freq, soft_mask=params.soft_mask)
-                if symmetric:
-                    extra = mergem.adaptamer_seeds_flip(
-                        t1, t2, freq=params.freq,
-                        soft_mask=params.soft_mask)
-                    seeds = mergem.SeedBatch(*[
-                        np.concatenate([getattr(seeds, f),
-                                        getattr(extra, f)])
-                        for f in ("plen", "acont", "apost", "bcont",
-                                  "bpost", "bcomp")])
-        stats["nseeds"] = seeds.n
-        stats["seed_len_avg"] = (float(seeds.plen.astype(np.float64).mean())
-                                 if seeds.n else 0.0)
-        stats["seed_pipeline"] = "host"
-        with prof.span("aligner.chain"):
-            tubes = chainm.chain_tubes(seeds, amax, bmax, alens_by_rank,
-                                       chain_break=params.chain_break,
-                                       chain_min=params.chain_min)
-    if verbose:
-        sys.stderr.write(f"  Seed pipeline: {stats['seed_pipeline']}\n")
-    stats["nhits"] = tubes.n
-
-    seq_cache: Dict[Tuple[int, int], np.ndarray] = {}
-
-    def get_a(rank: int, comp: bool) -> np.ndarray:
-        key = (rank, comp)
-        if key not in seq_cache:
-            s = gdb1.get_contig(int(perm1[rank]))
-            seq_cache[key] = dna.revcomp(s) if comp else s
-        return seq_cache[key]
-
-    def get_b(rank: int) -> np.ndarray:
-        key = (rank, None)
-        if key not in seq_cache:
-            seq_cache[key] = gdb2.get_contig(int(perm2[rank]))
-        return seq_cache[key]
-
-    if engine == "torch":
-        groups = _device_align(gdb1, gdb2, tubes, perm1, perm2, lens1,
-                               lens2, spec, params, get_a, get_b, stats,
-                               selfcmp, dev, cfg)
-    else:
-        groups = _ref_align(tubes, perm1, perm2, lens1, lens2, spec, params,
-                            get_a, get_b, selfcmp)
-    out: List[Overlap] = []
-    nlas = 0
-    with prof.span("aligner.dedup"):
-        for _, ovls in groups:
-            nlas += len(ovls)
-            out.extend(dedup_group(ovls))
-    stats["nlas"] = nlas
-    stats["nlive"] = len(out)
-    stats["cov"] = sum(o.aepos - o.abpos for o in out)
-    # deterministic output order (SORT_MAP + la_merge heap)
-    out.sort(key=lambda o: (o.aread, o.abpos, o.bread, o.bcomp))
-    return out, stats
+            groups = _ref_align(tubes, perm1, perm2, lens1, lens2, spec,
+                                params, get_a, get_b, selfcmp)
+        out: List[Overlap] = []
+        nlas = 0
+        with prof.span("aligner.dedup"):
+            for _, ovls in groups:
+                nlas += len(ovls)
+                out.extend(dedup_group(ovls))
+        stats["nlas"] = nlas
+        stats["nlive"] = len(out)
+        stats["cov"] = sum(o.aepos - o.abpos for o in out)
+        # deterministic output order (SORT_MAP + la_merge heap)
+        out.sort(key=lambda o: (o.aread, o.abpos, o.bread, o.bcomp))
+        return out, stats
 
 
 def _device_seeds(gdb1, gdb2, tables, alens_by_rank, amax, bmax, params,

@@ -1214,19 +1214,20 @@ def _upload_table(t, device):
     """Host io.gix.GixTable -> device entry arrays of _pad_bucket(t.n) rows
     (zero past t.n) and its mask bytes: (T, maskb)."""
     E = _pad_bucket(t.n)
-    khi, klo = t.khi_klo()
 
     def pad32(x):
         a = np.zeros(E, np.int32)
         a[:len(x)] = x
         return torch.as_tensor(a, device=device)
-    w0 = pad32((khi >> np.uint64(32)).astype(np.uint32).view(np.int32))
-    w1 = pad32((khi & np.uint64(M32)).astype(np.uint32).view(np.int32))
-    w2 = pad32((klo.astype(np.uint32) << 16).view(np.int32))
-    T = (w0, w1, w2, pad32(t.cont), pad32(t.post),
-         pad32(t.comp.astype(np.int32)), pad32(np.minimum(t.lcp, KMER)),
-         torch.tensor(t.n, dtype=torch.int64, device=device), None)
-    return T, pad32(t.maskb)
+    with prof.span("devpipe.upload", device):
+        khi, klo = t.khi_klo()
+        w0 = pad32((khi >> np.uint64(32)).astype(np.uint32).view(np.int32))
+        w1 = pad32((khi & np.uint64(M32)).astype(np.uint32).view(np.int32))
+        w2 = pad32((klo.astype(np.uint32) << 16).view(np.int32))
+        T = (w0, w1, w2, pad32(t.cont), pad32(t.post),
+             pad32(t.comp.astype(np.int32)), pad32(np.minimum(t.lcp, KMER)),
+             torch.tensor(t.n, dtype=torch.int64, device=device), None)
+        return T, pad32(t.maskb)
 
 
 def device_tubes_tables(t1, t2, alens_by_rank, amax: int, bmax: int,

@@ -266,7 +266,6 @@ class WaveEngine:
             if requeue:
                 req = alive.copy()
                 break
-            prof.count("wave.pair_continuations")
             k = min(k * 4, cfg.max_chunks)
         self._learn(pkey, +2, (pf, pr), n, None if req is None else ~req)
         kbase0 = (big[6] + ((big[7] - big[6]) >> 1) - cfg.w // 2)
@@ -287,7 +286,6 @@ class WaveEngine:
             packed = self._one_dir(pool, big, direction, k)
             if not (packed[5][:n] != 0).any() or k >= cfg.max_chunks:
                 break
-            prof.count("wave.continuations")
             k = min(max(2 * k, k + 2), cfg.max_chunks)
         self._learn(pkey, direction, (packed,), n)
         kbase0 = (big[6] + ((big[7] - big[6]) >> 1) - cfg.w // 2)

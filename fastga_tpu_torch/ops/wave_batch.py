@@ -108,7 +108,6 @@ class BatchAligner:
         s = self.engine._small
         if s is None or nsel > s.cfg.n:
             return self.engine
-        prof.count("batch.small_batches")
         return s
 
     # -- internals -----------------------------------------------------------
@@ -185,7 +184,6 @@ class BatchAligner:
                                    [anti[i] for i in sel])
             with prof.span("batch.engine_run"):
                 res, diags = eng.run_dir(self.pool(), tubes, direction)
-            prof.count("batch.tubes", len(sel))
             self.stats["device_waves"] += int(res.nwaves.sum())
             for j, i in enumerate(sel):
                 if not bool(res.fallback[j]):
@@ -311,7 +309,6 @@ class BatchAligner:
                 ph = min(int(mh * 1.3 + 2 * CW) // CW + 1, PRED_CAP_LONG,
                          e.cfg.max_chunks)
                 cap, req_ok = PRED_CAP_LONG, False
-                prof.count("batch.long_tubes", n)
             else:
                 e = eng
                 hints = [it.waves_hint for it in items]
@@ -321,7 +318,6 @@ class BatchAligner:
                     if small is not None:
                         cap = PASS1_CAP
                 req_ok = small is not None
-                prof.count("batch.tubes", n)
             self.stats["items"] += n
             with prof.span("batch.engine_run"):
                 (res_f, diags_f), (res_r, diags_r), req, k = e.run_pair(

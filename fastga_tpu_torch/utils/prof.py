@@ -1,29 +1,40 @@
-"""Tiny accumulating profiler (port of fastga_tpu/utils/prof.py).
+"""Host spans and counters of the port (port of fastga_tpu/utils/prof.py).
 
 Usage:  with prof.span("wave.pair_dispatch"): ...   /  prof.count(name, n)
-``report()`` returns {name: (seconds, calls)}.  Off by default: set
-``prof.ENABLED = True``; the spans then also mark NVTX ranges on the card,
-so a torch.profiler trace (``trace(dir)``) shows them on the timeline.
-Span names are those fastga_tpu's bench reads (bench.py PHASES).
+Off by default: set ``prof.ENABLED = True``.  ``report()`` returns
+{name: (seconds, calls)} summed over spans and counters, ``counters()``
+the counters alone (a counter may share its name with a span, as
+``gix.entries`` does).  Each closed span is also kept as (id, parent_id,
+job_id, name, t0, t1) (``events()``), t0 and t1 on ``time.perf_counter``'s
+clock: the parent is the innermost span open on the same thread, the job
+the one ``job()`` opened.  ``seconds(*names)`` sums that record.  Inside a
+``trace(dir)`` window each span also opens
+``torch.profiler.record_function(name)``, so the Chrome trace it writes
+shows the host spans beside the kernels on the profiler's one clock.
+
+Call spans as ``prof.span(...)``, looked up on this module, never bound
+by name: a wrapper put in its place (the benchmark's traced run puts one)
+then sees every span.  Span names are those fastga_tpu's bench reads
+(bench.py PHASES), and the host stages' own (``cli.resolve_genome``,
+``gix.*``, ``io.write``, ...).
 """
 
+import itertools
+import threading
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 ENABLED = False
 _acc = defaultdict(float)
 _cnt = defaultdict(int)
-
-
-def _nvtx():
-    try:
-        import torch
-        if torch.cuda.is_available():
-            return torch.cuda.nvtx
-    except ImportError:
-        pass
-    return None
+_num = defaultdict(int)      # the counters alone
+_events = []                 # (id, parent_id, job_id, name, t0, t1)
+_ids = itertools.count(1)
+_job_ids = itertools.count(1)
+_job = None                  # id of the job that job() has open
+_open = threading.local()    # .ids: the spans open on this thread
+_record_function = None      # torch.profiler.record_function in trace()
 
 
 @contextmanager
@@ -34,29 +45,61 @@ def span(name, device=None):
     if not ENABLED:
         yield
         return
-    nv = _nvtx()
-    if nv is not None:
-        nv.range_push(name)
+    sid = next(_ids)
+    stack = _stack()
+    parent = stack[-1] if stack else None
+    stack.append(sid)
+    rf = _record_function(name) if _record_function else nullcontext()
     t0 = time.perf_counter()
     try:
-        yield
-        if device is not None and _is_cuda(device):
-            import torch
-            torch.cuda.synchronize(device)
+        with rf:
+            yield
+            if device is not None and _is_cuda(device):
+                import torch
+                torch.cuda.synchronize(device)
     finally:
-        _acc[name] += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        stack.pop()
+        _acc[name] += t1 - t0
         _cnt[name] += 1
-        if nv is not None:
-            nv.range_pop()
+        _events.append((sid, parent, _job, name, t0, t1))
+
+
+def _stack():
+    if not hasattr(_open, "ids"):
+        _open.ids = []
+    return _open.ids
 
 
 def _is_cuda(device):
     return getattr(device, "type", str(device).split(":")[0]) == "cuda"
 
 
+@contextmanager
+def job():
+    """The root span ``fastga.job`` of one job, under a new job id that
+    every span closed inside it carries."""
+    global _job
+    if not ENABLED:
+        yield
+        return
+    outer, _job = _job, next(_job_ids)
+    try:
+        with span("fastga.job"):
+            yield
+    finally:
+        _job = outer
+
+
 def count(name, n=1):
     if ENABLED:
         _cnt[name] += n
+        _num[name] += n
+
+
+def counters():
+    """{name: total} of ``count`` alone."""
+    return dict(_num)
 
 
 def report():
@@ -64,24 +107,56 @@ def report():
             for k in sorted(set(_acc) | set(_cnt))}
 
 
+def events():
+    """The record of closed spans, oldest first: (id, parent_id, job_id,
+    name, t0, t1)."""
+    return list(_events)
+
+
+def seconds(*names):
+    """Seconds in the record under spans of ``names``, a span nested in
+    another of them counted once."""
+    names = set(names)
+    by_id = {e[0]: e for e in _events}
+
+    def inside(e):
+        p = by_id.get(e[1])
+        while p is not None:
+            if p[3] in names:
+                return True
+            p = by_id.get(p[1])
+        return False
+    return sum(e[5] - e[4] for e in _events
+               if e[3] in names and not inside(e))
+
+
 def reset():
     _acc.clear()
     _cnt.clear()
+    _num.clear()
+    _events.clear()
 
 
 @contextmanager
 def trace(out_dir):
     """torch.profiler trace (CPU + CUDA activities) of the enclosed work,
-    written as a Chrome trace under ``out_dir``; yields the profiler."""
+    written as a Chrome trace under ``out_dir``; yields the profiler.
+    With ``ENABLED`` on, each span inside appears as a record_function
+    range."""
     import os
 
     import torch
+    global _record_function
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(out_dir, exist_ok=True)
     with torch.profiler.profile(activities=acts) as p:
-        yield p
+        _record_function = torch.profiler.record_function
+        try:
+            yield p
+        finally:
+            _record_function = None
     p.export_chrome_trace(os.path.join(out_dir, "trace.json"))
 
 

@@ -123,8 +123,8 @@ def resolve_genome(path: str, nthreads: int = 8, keep: bool = False,
     pulls the implicit `.1ano` even without explicit # args.  With
     ``lazy`` and no masking in play, FASTA/GDB inputs return table=None
     so the caller's device pipeline can build the index on the card.  An
-    index built here comes from ``build_gix_device`` on ``device`` in the
-    default case (k = 40, no masks, ``nthreads`` 8), else from the host.
+    index built here, with its masks, comes from ``build_gix_device`` on
+    ``device`` at k = 40 and ``nthreads`` 8, else from the host.
     """
     from ..io import ano as anom
     from ..io import gdb as gdbm
@@ -173,9 +173,9 @@ def resolve_genome(path: str, nthreads: int = 8, keep: bool = False,
             if verbose:
                 sys.stderr.write(f"  Creating genome index (GIX) {root}.gix"
                                  f"{' (in memory)' if not keep else ''}\n")
-            if not gix_masks and nthreads == 8:
+            if nthreads == 8:
                 from ..ops.device_pipeline import build_gix_device
-                table = build_gix_device(gdb, device)
+                table = build_gix_device(gdb, device, masks=gix_masks)
             else:
                 table = gixm.build_gix(gdb, nthreads=nthreads,
                                        masks=gix_masks)

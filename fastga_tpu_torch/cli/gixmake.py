@@ -3,10 +3,10 @@
     python -m fastga_tpu_torch.cli.gixmake [-v] [-L:<log>] [-T<int>] [-P<dir>]
         [-k<int>] <source> (#<mask>)*
 
-Port of fastga_tpu/cli/gixmake.py.  The default case (k = 40, no #mask,
--T8) builds the index on the card (ops/device_pipeline.build_gix_device;
+Port of fastga_tpu/cli/gixmake.py.  At k = 40 and -T8 the index, with
+its #mask bytes, is built on the card (ops/device_pipeline.build_gix_device;
 ``main(argv, device="cpu")`` runs the kernels' plain versions); any other
-builds it on the host (io/gix.build_gix).
+k or -T builds it on the host (io/gix.build_gix).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ def main(argv=None, device=None) -> int:
         raise _common.ArgError("gixmake", "expects one source", USAGE)
     nthreads = int(opts.get("T") or 8)
     kmer = int(opts.get("k") or 40)
-    on_card = kmer == KMER and not mask_args and nthreads == 8
+    on_card = kmer == KMER and nthreads == 8
     if on_card:
         try:
             dev = resolve_device(device)
@@ -60,12 +60,12 @@ def main(argv=None, device=None) -> int:
         ano_file = Path(str(root) + ".1ano")
         masks = anom.read_ano(ano_file, gdb) if ano_file.exists() else None
 
+    gix_masks = masks if mask_args else None
     if on_card:
         from ..ops.device_pipeline import build_gix_device
-        table = build_gix_device(gdb, dev)
+        table = build_gix_device(gdb, dev, masks=gix_masks)
     else:
-        table = gixm.build_gix(gdb, kmer=kmer,
-                               masks=masks if mask_args else None,
+        table = gixm.build_gix(gdb, kmer=kmer, masks=gix_masks,
                                nthreads=nthreads)
     gixm.write_gix(table, root, nthreads=nthreads)
     ktot = gdb.seqtot - (kmer - 1) * gdb.ncontig

@@ -128,7 +128,10 @@ def build_gix(gdb: GDB, kmer: int = KMER, masks=None,
               nthreads: int = 8) -> GixTable:
     """GDB -> sorted GIX table (GIXmake equivalent).
 
-    ``masks``: optional list of io.gdb.MaskIval for masked-prefix bytes.
+    ``masks``: optional list of io.gdb.MaskIval for masked-prefix bytes;
+    a masked table counts under ``gix.host_tables`` (its partner
+    ``gix.card_tables`` counts the masked tables built on the card by
+    ops.device_pipeline.build_gix_device).
     ``nthreads``: reference -T; only affects the short-GDB fake-contig
     padding (short_GDB_fix GIXmake.c:1605-1624: GDBs with fewer contigs than
     threads get fake KMER-length contigs that emit no entries but appear in
@@ -159,6 +162,8 @@ def build_gix(gdb: GDB, kmer: int = KMER, masks=None,
             lcp = _compute_lcp(kbytes, kmer)
             prefix_index = _prefix_index(kbytes)
         prof.count("gix.entries", len(post))
+        if masks:
+            prof.count("gix.host_tables")
 
         return GixTable(
             kmer=kmer, kbytes=kbytes, post=post, cont=cont, comp=comp,

@@ -147,7 +147,7 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
         if engine == "torch":
             tables = None
             if has_masks or (selfcmp and t1 is not None):
-                # host tables go up whole: the mask bytes exist only there
+                # whole tables go up: the lazy routes build no mask bytes
                 with prof.span("aligner.gix"):
                     if t1 is None:
                         t1 = build_gix(gdb1)

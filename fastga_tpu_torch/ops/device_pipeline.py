@@ -12,10 +12,10 @@ bucket-pair chain sweep (a sort of the seeds, a merge with their shifted
 copies, segmented scans for every per-chain aggregate); ``symmetric`` adds
 the -S flip pass (genome 2 driving in every orientation against genome 1's
 full table).  ``device_tubes_self`` seeds one genome against itself within
-its own table (``self_seeds``).  ``device_tubes_tables`` uploads host GIX
-tables, the route of mask bytes (``-M``, ``#mask``, masked tables: they
-exist only on the host) and of a self comparison with a given table; it
-takes a pair (with or without -S) or self.  ``device_tubes_paneled``
+its own table (``self_seeds``).  ``device_tubes_tables`` uploads
+io.gix.GixTables, the route of mask bytes (``-M``, ``#mask``, masked
+tables) and of a self comparison with a given table; it takes a pair
+(with or without -S) or self.  ``device_tubes_paneled``
 streams a pair or self past the single-shot bases: the tables of one
 24-bit kmer-prefix range at a time, their seeds appended to one buffer on
 the device and chained once.  Only the tube arrays come back to the host;
@@ -52,7 +52,8 @@ sort that compacts the kept seeds of a masked or -S pass is a stable
 compaction (``_compact``).
 
 ``build_gix_device`` is the index build of ``gixmake`` and the command
-line: ``gix_arrays`` of one genome, of which only the finished entry rows
+line: ``gix_arrays`` of one genome, with the masked-prefix bytes of its
+mask intervals (``masked_prefix``), of which only the finished entry rows
 come back to the host as an io.gix.GixTable.
 """
 
@@ -60,6 +61,7 @@ from __future__ import annotations
 
 import sys
 import time
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -214,7 +216,7 @@ def driver_candidates(bps, coff, clen, invp, ncontig):
             None, ok.sum(), ok.to(torch.int32))
 
 
-def gix_arrays(bps, coff, clen, invp, ncontig):
+def gix_arrays(bps, coff, clen, invp, ncontig, cov=None):
     """Sorted GIX entry arrays of one genome.
 
     bps: uint8 [Npad/4] 2-bit packed bases (base i at bit 2*(i%4));
@@ -224,18 +226,88 @@ def gix_arrays(bps, coff, clen, invp, ncontig):
     Returns (w0, w1, w2, cont, post, comp, lcp, nentries, valid): entries
     sorted by (kmer, cont, post, comp) in 2 * Npad rows (both orientations
     of every position), padded with all-ones keys; w0/w1 = kmer bits
-    79..16, w2 = bits 15..0 << 16."""
+    79..16, w2 = bits 15..0 << 16.
+
+    With ``cov`` (int32 [Npad], nonzero at masked bases) the sort runs
+    under span ``gix.sort`` and a tenth array follows: each row's
+    masked-prefix byte (``masked_prefix``, uint8), gathered by the sort's
+    permutation."""
+    dev = bps.device
     (okflat, w0a, w1a, w2a, conta, posta, compa), N = \
         _genome_candidates(bps, coff, clen, invp, ncontig)
+    mb = None if cov is None else masked_prefix(cov)
     # two packed int64 keys carry all entry data; payloads come back from
     # the sorted keys
     ka, kb = pack_entry_keys(okflat, w0a, w1a, w2a, conta, posta, compa)
-    o = lexsort2(ka, kb)
-    w0s, w1s, w2s, cs, ps, os_ = unpack_entry_keys(ka[o], kb[o])
+    with (nullcontext() if cov is None else prof.span("gix.sort", dev)):
+        o = lexsort2(ka, kb)
+        w0s, w1s, w2s, cs, ps, os_ = unpack_entry_keys(ka[o], kb[o])
+        if mb is not None:
+            mb = mb[o]
     nent = okflat.sum()
-    vs = (torch.arange(2 * N, device=bps.device) < nent).to(torch.int32)
+    vs = (torch.arange(2 * N, device=dev) < nent).to(torch.int32)
     lcp = adjacent_lcp(w0s, w1s, w2s)
-    return (w0s, w1s, w2s, cs, ps, os_, lcp, nent, vs)
+    T = (w0s, w1s, w2s, cs, ps, os_, lcp, nent, vs)
+    return T if mb is None else T + (mb,)
+
+
+def masked_prefix(cov):
+    """Masked-prefix bytes (io.gix._masked_prefix) of every entry
+    candidate of a genome laid end to end, forward slots then
+    reverse-complement slots as in entry_candidates: uint8 [2 * Npad].
+    The forward slot at base i reads the run of masked bases starting at
+    i, the reverse-complement slot (post i + TMER) the run ending at
+    i + TMER - 1, each capped at KMER: two segmented sums of the coverage
+    that restart at every unmasked base, one a suffix scan.  A run is not
+    cut at its contig's ends, as the host's is: an entry's KMER bases lie
+    inside its contig, so a run that reaches the contig's end (or start)
+    is already KMER long, and the cap gives the same byte."""
+    c = (cov != 0).to(torch.int32)
+    unmasked = 1 - c
+    (ahead,) = fused_scan((c,), (("sum", 0),), (unmasked,), reverse=True)
+    (behind,) = fused_scan((c,), (("sum", 0),), (unmasked,))
+    return torch.cat([ahead.clamp(max=KMER),
+                      _roll(behind, -(TMER - 1)).clamp(max=KMER)]).to(
+                          torch.uint8)
+
+
+def mask_coverage(masks, lens, N, device):
+    """int32 [N] per-base mask coverage of a genome laid end to end (its
+    contigs at their cumulative offsets), nonzero inside any of ``masks``
+    (io.gdb.MaskIval, contig-relative [beg, end), clipped to the contig):
+    +1/-1 at each interval's ends, then one fused_scan sum."""
+    lens = np.asarray(lens, np.int64)
+    coff = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    iv = np.array([(m.contig, m.beg, m.end) for m in masks],
+                  np.int64).reshape(-1, 3)
+    clen = lens[iv[:, 0]]
+    beg = coff[iv[:, 0]] + np.clip(iv[:, 1], 0, clen)
+    end = coff[iv[:, 0]] + np.clip(iv[:, 2], 0, clen)
+    keep = beg < end
+    at = torch.as_tensor(np.concatenate([beg[keep], end[keep]]),
+                         device=device)
+    step = torch.as_tensor(np.repeat(np.array([1, -1], np.int32),
+                                     int(keep.sum())), device=device)
+    d = torch.zeros(N + 1, dtype=torch.int32, device=device).index_add_(
+        0, at, step)[:N]
+    return fused_scan((d,), (("sum", None),))[0]
+
+
+def kmer_bytes(w0, w1, w2):
+    """uint8 [n, KMER // 4] big-endian k-mer bytes (io.gix.GixTable.kbytes)
+    of entry rows' 80-bit k-mer words."""
+    sh = torch.tensor([24, 16, 8, 0], dtype=torch.int32, device=w0.device)
+    return (torch.cat([w0[:, None] >> sh, w1[:, None] >> sh,
+                       w2[:, None] >> sh[:2]], 1) & 0xFF).to(torch.uint8)
+
+
+def prefix_counts(w0):
+    """int64 [NPREFIX + 1] cumulative row counts of the 24-bit k-mer
+    prefixes (io.gix._prefix_index) of entry rows sorted by k-mer."""
+    pre = torch.zeros(NPREFIX + 1, dtype=torch.int64, device=w0.device)
+    pre[1:] = torch.cumsum(torch.bincount(_u32_64(w0) >> 8,
+                                          minlength=NPREFIX), 0)
+    return pre
 
 
 def pack_entry_keys(ok, w0a, w1a, w2a, conta, posta, compa):
@@ -1237,9 +1309,9 @@ def device_tubes_tables(t1, t2, alens_by_rank, amax: int, bmax: int,
     """TubeBatch from host io.gix.GixTables uploaded to ``device``
     (default: the card): a pair, or a self comparison when ``t2 is t1``;
     ``symmetric`` adds the -S flip pass to a pair.  The route of mask
-    bytes, which exist only in host tables, and of a self comparison with
-    a given table.  (tubes, nseeds, plsum), or None with DECLINE set past
-    a cap checked before any upload.  The seed
+    bytes, which the lazy routes do not build, and of a self comparison
+    with a given table.  (tubes, nseeds, plsum), or None with DECLINE set
+    past a cap checked before any upload.  The seed
     slots are each expansion's own, from its total before the masked or
     flipped seeds are dropped, where the JAX package caps them at twice
     the uploaded table's rows (genome 2's for the flip pass)."""
@@ -1463,17 +1535,26 @@ def device_tubes_paneled(gdb1, gdb2, alens_by_rank, freq: int = 10,
 # One genome's GIX table for gixmake and the command line
 # ---------------------------------------------------------------------------
 
-def build_gix_device(gdb, device=None):
-    """io.gix.GixTable of one genome (k = KMER, no masks, the 8-thread
-    contig padding) from ``gix_arrays`` on ``device`` (default: the card);
-    only the finished entry rows cross to the host.
+def build_gix_device(gdb, device=None, masks=None):
+    """io.gix.GixTable of one genome (k = KMER, the 8-thread contig
+    padding) from ``gix_arrays`` on ``device`` (default: the card); only
+    the finished entry rows cross to the host.
+
+    ``masks`` (io.gdb.MaskIval, as io.gix.build_gix takes them) give the
+    rows their masked-prefix bytes, from the intervals' coverage on the
+    device (``mask_coverage``, ``masked_prefix``); without masks they are
+    zero.  A masked build runs under the host build's spans ``gix.build``
+    and ``gix.sort``, counts its rows under ``gix.entries``, and counts
+    itself under ``gix.card_tables`` (io.gix.build_gix's masked tables
+    count under ``gix.host_tables``).
 
     A genome past a cap of the JAX package's checked before any upload
     (total bases, contig count, contig length) is built on the host by
-    io.gix.build_gix, and a line on stderr says so.  The table keeps every
-    entry the device counts (the JAX package builds on the host past
-    max(4096, N))."""
+    io.gix.build_gix, with its masks, and a line on stderr says so.  The
+    table keeps every entry the device counts (the JAX package builds on
+    the host past max(4096, N))."""
     dev = torch.device("cuda" if device is None else device)
+    masks = masks or None
     lens = gdb.contig_lengths()
     reason = None
     if len(lens) == 0:
@@ -1487,27 +1568,29 @@ def build_gix_device(gdb, device=None):
     if reason is not None:
         sys.stderr.write(f"fastga_tpu: device GIX build declined "
                          f"({reason}); building the index on the host\n")
-        return gixm.build_gix(gdb)
-    with prof.span("devpipe.gix", dev):
+        return gixm.build_gix(gdb, masks=masks)
+    # a masked build is timed as the host's masked build is
+    with prof.span("devpipe.gix" if masks is None else "gix.build", dev):
         bps, coff, clen, invp, nc, N = _prep_genome(gdb, lens, dev)
-        T = gix_arrays(bps, coff, clen, invp, nc)
+        cov = None if masks is None else mask_coverage(masks, lens, N, dev)
+        T = gix_arrays(bps, coff, clen, invp, nc, cov)
         n = int(T[7])
-        w0, w1, w2, cont, post, comp, lcp = (_numpy(x[:n]) for x in T[:7])
-    w0, w1, w2 = (w.view(np.uint32) for w in (w0, w1, w2))
-    kbytes = np.empty((n, KMER // 4), np.uint8)
-    for j in range(4):
-        kbytes[:, j] = (w0 >> (24 - 8 * j)).astype(np.uint8)
-        kbytes[:, 4 + j] = (w1 >> (24 - 8 * j)).astype(np.uint8)
-    kbytes[:, 8] = (w2 >> 24).astype(np.uint8)
-    kbytes[:, 9] = (w2 >> 16).astype(np.uint8)
-    nfake = max(0, 8 - len(lens))
-    lens_eff = np.concatenate([lens, np.full(nfake, KMER, np.int64)])
-    return gixm.GixTable(
-        kmer=KMER, kbytes=kbytes, post=post.astype(np.int32),
-        cont=cont.astype(np.int32), comp=comp.astype(bool),
-        lcp=np.minimum(lcp, KMER).astype(np.uint8),
-        maskb=np.zeros(n, np.uint8), prefix_index=gixm._prefix_index(kbytes),
-        perm=_length_perm(lens_eff)[0],
-        post_bytes=gixm._bytes_for(int(lens_eff.max())),
-        cont_bytes=gixm._bytes_for(2 * len(lens_eff)),
-        seqtot=gdb.seqtot + nfake * KMER)
+        w0, w1, w2, cont, post, comp, lcp = (x[:n] for x in T[:7])
+        # the host's table columns, finished on the device
+        kbytes, post, cont, comp, lcp, prefix_index = (_numpy(x) for x in (
+            kmer_bytes(w0, w1, w2), post, cont, comp.to(torch.bool),
+            lcp.to(torch.uint8), prefix_counts(w0)))
+        maskb = np.zeros(n, np.uint8) if cov is None else _numpy(T[9][:n])
+        nfake = max(0, 8 - len(lens))
+        lens_eff = np.concatenate([lens, np.full(nfake, KMER, np.int64)])
+        table = gixm.GixTable(
+            kmer=KMER, kbytes=kbytes, post=post, cont=cont, comp=comp,
+            lcp=lcp, maskb=maskb, prefix_index=prefix_index,
+            perm=_length_perm(lens_eff)[0],
+            post_bytes=gixm._bytes_for(int(lens_eff.max())),
+            cont_bytes=gixm._bytes_for(2 * len(lens_eff)),
+            seqtot=gdb.seqtot + nfake * KMER)
+    if masks is not None:
+        prof.count("gix.entries", n)
+        prof.count("gix.card_tables")
+    return table

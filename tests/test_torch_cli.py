@@ -46,6 +46,7 @@ from fastga_tpu_torch.io import onecode as tonecode
 from fastga_tpu_torch.models import aligner as tal
 from fastga_tpu_torch.ops import device_pipeline as tdp
 from fastga_tpu_torch.ops import wave as tw
+from fastga_tpu_torch.utils import prof
 from tests.test_fastga_cli import _write_fa
 from tests.test_gdb import write_fasta
 from tests.test_wave_ref import diverged_pair
@@ -194,6 +195,61 @@ def test_flags_match_jax_cli(pair, self_genome, case, stats_seen, capsys):
     if case == "f20":
         assert "device seed pipeline declined (-f 20" in err
         assert stats_seen[-1]["seed_decline"].startswith("-f 20")
+
+
+def _soft_masked(src, dst, lo, hi):
+    """A copy of the FASTA file ``src`` in upper case but for bases
+    [lo, hi) of its first record, in lower case."""
+    out, rec, at = [], -1, 0
+    for line in Path(src).read_text().splitlines():
+        if line.startswith(">"):
+            rec += 1
+            out.append(line)
+            continue
+        row = line.upper()
+        if rec == 0:
+            row = "".join(b.lower() if lo <= at + i < hi else b
+                          for i, b in enumerate(row))
+            at += len(row)
+        out.append(row)
+    Path(dst).write_text("\n".join(out) + "\n")
+    return str(dst)
+
+
+@pytest.mark.parametrize("case", ["M", "self", "S"])
+def test_masked_routes_build_tables_on_the_card(pair, self_genome, case,
+                                                stats_seen, monkeypatch,
+                                                tmp_path, capsys):
+    """-M on a pair, on one soft-masked genome and with -S: the masked
+    tables built on the card (``gix.card_tables`` one a table) give the
+    bytes of the tables built on the host past a lowered single-shot cap
+    (``gix.host_tables`` one a table, each decline on stderr)."""
+    A, _ = _fa(pair)
+    B = _soft_masked(pair / "B.fa", tmp_path / "Bm.fa", 3000, 4500)
+    S = _soft_masked(self_genome / "S.fasta", tmp_path / "Sm.fa", 2500, 3500)
+    args = {"M": ["-M", A, B], "self": ["-M", S],
+            "S": ["-M", "-S", A, B]}[case]
+    ntab = 1 if case == "self" else 2
+    monkeypatch.setattr(prof, "ENABLED", True)
+    out = {}
+    try:
+        for where in ("card", "host"):
+            if where == "host":
+                monkeypatch.setattr(tdp, "_MAX_DEV_BASES", 1000)
+            prof.reset()
+            out[where] = port(args)
+            c = prof.counters()
+            assert (c.get("gix.card_tables", 0),
+                    c.get("gix.host_tables", 0)) == \
+                {"card": (ntab, 0), "host": (0, ntab)}[where]
+            err = capsys.readouterr().err
+            assert err.count("device GIX build declined") == \
+                (ntab if where == "host" else 0)
+            assert stats_seen[-1]["seed_pipeline"] == "device"
+    finally:
+        prof.reset()
+    assert out["card"] == out["host"]
+    assert out["card"].count("\n") >= 2
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,8 @@
 """The port's span record (fastga_tpu_torch/utils/prof.py): ids, parents
 and job ids of nested spans, ``seconds`` over nested spans of one name,
 nothing recorded while off, the record_function ranges inside ``trace``,
-and the spans and counters of one ``fastga -M -1:`` job on the CPU."""
+and the spans and counters of one ``fastga -M -1:`` job on the CPU, its
+masked tables built on the card and on the host."""
 
 import ast
 import inspect
@@ -17,6 +18,7 @@ from fastga_tpu_torch.api import AlnReader
 from fastga_tpu_torch.cli import fastga
 from fastga_tpu_torch.io import gix
 from fastga_tpu_torch.models import aligner
+from fastga_tpu_torch.ops import device_pipeline as dp
 from fastga_tpu_torch.ops import wave as tw
 from fastga_tpu_torch.utils import prof
 
@@ -140,9 +142,14 @@ def _write_fa(path, seqs, masked):
             f.write(f">c{i}\n" + "".join(t) + "\n")
 
 
-def test_fastga_job_spans_and_counts(on, tmp_path, monkeypatch):
+@pytest.mark.parametrize("build", ["card", "host"])
+def test_fastga_job_spans_and_counts(on, tmp_path, monkeypatch, build):
     """A tiny ``fastga -M -1:`` pair: one job id, the host stages nested
-    under their callers, the GIX entries and the records written."""
+    under their callers, the GIX entries and the records written.  The
+    masked tables are built on the card (``gix.build`` > ``gix.sort``),
+    or past a lowered single-shot cap on the host, whose stages nest under
+    ``gix.build`` too; ``gix.card_tables`` / ``gix.host_tables`` count
+    them."""
     rng = np.random.default_rng(14)
     A = [rng.integers(0, 4, 4000) for _ in range(2)]
     B = []
@@ -158,12 +165,15 @@ def test_fastga_job_spans_and_counts(on, tmp_path, monkeypatch):
     cfg = tw.WaveConfig(n=16, w=256, chunk=64, max_chunks=64)
     monkeypatch.setattr(aligner, "align_genomes",
                         lambda *a, **k: real(*a, cfg=cfg, **k))
-    build = gix.build_gix
+    if build == "host":
+        monkeypatch.setattr(dp, "_MAX_DEV_BASES", 1000)
+    where = {"card": (dp, "build_gix_device"), "host": (gix, "build_gix")}
+    built = getattr(*where[build])
 
     def kept(*a, **k):
-        tables.append(build(*a, **k))
+        tables.append(built(*a, **k))
         return tables[-1]
-    monkeypatch.setattr(gix, "build_gix", kept)
+    monkeypatch.setattr(*where[build], kept)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -194,7 +204,8 @@ def test_fastga_job_spans_and_counts(on, tmp_path, monkeypatch):
             assert parent(e) in want[e[3]], e
     n = {k: sum(1 for e in ev if e[3] == k) for k in want}
     assert n["cli.resolve_genome"] == n["gdb.create"] == 2
-    assert n["gix.build"] == n["gix.sort"] == n["gix.lcp"] == 2
+    assert n["gix.build"] == n["gix.sort"] == 2
+    assert n["gix.lcp"] == n["gix.entries"] == (2 if build == "host" else 0)
     assert n["aligner.align_genomes"] == n["io.write"] == 1
     assert n["devpipe.upload"] == 2
     t = by_name(ev)
@@ -205,6 +216,9 @@ def test_fastga_job_spans_and_counts(on, tmp_path, monkeypatch):
     counts = prof.counters()
     assert len(tables) == 2
     assert counts["gix.entries"] == sum(tb.n for tb in tables) > 0
+    other = {"card": "host", "host": "card"}[build]
+    assert counts.get(f"gix.{build}_tables") == 2
+    assert f"gix.{other}_tables" not in counts
     assert counts["io.records"] == AlnReader(out, see_seq=False).count > 0
     assert prof.seconds("gix.build") <= prof.seconds("cli.resolve_genome")
 

@@ -1470,8 +1470,12 @@ def device_tubes_paneled(gdb1, gdb2, alens_by_rank, freq: int = 10,
     its seeds take their own total's slots.  The global seed buffer starts
     at the JAX package's GCAP, twice genome 1's bases, and grows to the
     seeds' bucket where a run needs more.  ``verbose`` prints a line a
-    panel on stderr.  (tubes, nseeds, plsum), or None with DECLINE set
-    past a cap checked before any upload."""
+    panel on stderr.  Inside each panel's span ``devpipe.panel``, span
+    ``devpipe.panel_scan`` holds the table scans and
+    ``devpipe.panel_merge`` the merge and the append; counter
+    ``devpipe.panel_rescans`` counts the panels scanned again past their
+    buffers.  (tubes, nseeds, plsum), or None with DECLINE set past a cap
+    checked before any upload."""
     dev = torch.device("cuda" if device is None else device)
     selfish = gdb2 is None or gdb2 is gdb1
     if selfish:
@@ -1502,26 +1506,29 @@ def device_tubes_paneled(gdb1, gdb2, alens_by_rank, freq: int = 10,
     g1 = torch.zeros(GCAP, dtype=torch.int64, device=dev)
     g2 = torch.zeros(GCAP, dtype=torch.int64, device=dev)
     cap1, cap2 = _panel_caps(N1, N2, P)
-    goff = nseeds = plsum = 0
+    goff = plsum = 0
     for p in range(P):
         t0 = time.perf_counter()
         with prof.span("devpipe.panel", dev):
-            T1, over = _panel_table(prep1, tot1, cap1, P, p)
-            if selfish:
-                out = _self_seeds_sum(T1, 0, freq)
-            else:
-                T2, ovb = _panel_table(prep2, tot2, cap2, P, p)
-                over += ovb
-                out = _merge_seeds_sum(T1, T2, 0, freq)
+            with prof.span("devpipe.panel_scan", dev):
+                T1, over = _panel_table(prep1, tot1, cap1, P, p)
                 T2 = None
-            T1 = None
-            ns, pls = (int(x) for x in torch.stack([out[6], out[8]]).tolist())
-            if verbose:
-                sys.stderr.write(
-                    f"devpipe panel {p + 1}/{P}: ns={ns} over={over} "
-                    f"{time.perf_counter() - t0:.2f}s\n")
-            g1, g2, goff = _append_seeds(g1, g2, goff, out, ns)
-        nseeds += ns
+                if not selfish:
+                    T2, ovb = _panel_table(prep2, tot2, cap2, P, p)
+                    over += ovb
+            with prof.span("devpipe.panel_merge", dev):
+                out = (_self_seeds_sum(T1, 0, freq) if selfish
+                       else _merge_seeds_sum(T1, T2, 0, freq))
+                T1 = T2 = None
+                ns, pls = (int(x)
+                           for x in torch.stack([out[6], out[8]]).tolist())
+                if verbose:
+                    sys.stderr.write(
+                        f"devpipe panel {p + 1}/{P}: ns={ns} over={over} "
+                        f"{time.perf_counter() - t0:.2f}s\n")
+                g1, g2, goff = _append_seeds(g1, g2, goff, out, ns)
+        if over:
+            prof.count("devpipe.panel_rescans")
         plsum += pls
         out = None
     nb = min(_pad_bucket(max(goff, 1 << 13)), g1.shape[0])

@@ -113,8 +113,9 @@ Phases (every one runs; any failure exits non-zero before the summary):
    poly-A contig in B, whose GIX entries pass its padded bases (the JAX
    entry cap): build_gix_device equal to build_gix, and align_genomes on
    the card with phase 4's seeds and records; the uniform pair through the
-   paneled route with 2^20-entry panel buffers (every panel scans again at
-   its entries' bucket): phase 4's seeds and records.  Then the genome,
+   paneled route with its panel planes built in blocks of 2^20 positions
+   (every panel table at its entries' bucket): phase 4's seeds and
+   records.  Then the genome,
    index and annotation tools
    as `python -m fastga_tpu_torch.cli.<tool>` subprocesses on the
    repeat-rich FASTAs of phase 9 (repeats in lower case) under
@@ -867,7 +868,7 @@ class SeedCapture:
         import torch
 
         from fastga_tpu_torch.ops import device_pipeline as tp
-        names = (("merge_sorted_streams", "fused_scan", "_panel_caps",
+        names = (("merge_sorted_streams", "fused_scan", "_panel_plane",
                   "_chain_panel", "_expansion_slots", "_merge_seeds_sum",
                   "_self_seeds_sum") + self.ROUTES)
         self._orig = {n: getattr(tp, n) for n in names}
@@ -890,9 +891,9 @@ class SeedCapture:
                 self.scan[key] = (tuple(values), tuple(flags))
             return orig["fused_scan"](values, spec, flags, reverse)
 
-        def caps_w(N1, N2, P):
+        def plane_w(prep, total, P):
             self.panels.append(P)
-            return orig["_panel_caps"](N1, N2, P)
+            return orig["_panel_plane"](prep, total, P)
 
         def chain_w(*a):
             self.chain_panels += 1
@@ -930,7 +931,7 @@ class SeedCapture:
             return w
 
         tp.merge_sorted_streams, tp.fused_scan = merge_w, scan_w
-        tp._panel_caps, tp._chain_panel = caps_w, chain_w
+        tp._panel_plane, tp._chain_panel = plane_w, chain_w
         tp._expansion_slots = slots_w
         for n in ("_merge_seeds_sum", "_self_seeds_sum"):
             setattr(tp, n, pass_w(n))
@@ -2387,9 +2388,8 @@ TOOLS_DIR = os.path.join(CLI_DIR, "tools")
 
 @contextlib.contextmanager
 def lowered(**kw):
-    """device_pipeline's names (module constants, ``_panel_caps``,
-    ``_panel_scan``) set to ``kw`` for the enclosed block, as phase 4
-    lowers CHAIN_DEV_CAP."""
+    """device_pipeline's names (module constants, ``_plane_table``) set
+    to ``kw`` for the enclosed block, as phase 4 lowers CHAIN_DEV_CAP."""
     from fastga_tpu_torch.ops import device_pipeline as tp
     old = {k: getattr(tp, k) for k in kw}
     for k, v in kw.items():
@@ -2507,7 +2507,7 @@ def uniform_past_caps(name, gs, run_u, kw, routes, want=None, scans=None):
     route's decline before upload, then the paneled route), with phase
     4's records and no decline printed, and phase 4's seeds and tubes or
     ``want``'s (the host path's TubeBatch and seed count); ``scans`` lists
-    each ``_panel_scan`` call's (cap, entries past it)."""
+    each ``_plane_table`` call's (entries, rows)."""
     from fastga_tpu_torch.ops import cuda_build
     err = io.StringIO()
     with lowered(**kw), SeedCapture(inputs=False) as cap, \
@@ -2530,7 +2530,7 @@ def uniform_past_caps(name, gs, run_u, kw, routes, want=None, scans=None):
         + (", the host path's TubeBatch" if want is not None else "")
         + f"); {len(ovls)} records equal to phase 4's; "
         f"align_genomes {wall:.3f} s; launches {json.dumps(launches)}"
-        + (f"; panel scans (cap, entries past it) {scans}"
+        + (f"; panel tables (entries, rows) {scans}"
            if scans is not None else ""))
     return launches
 
@@ -2612,21 +2612,20 @@ def phase_past_caps(gs_rr, rr_ref, run_rr, run_u):
         "GIX entries past N", gs, run_u, {}, [("device_tubes", True)], want)
     gs = uniform_gdbs()     # new GDBs: no cached device tables
     scans = []
-    scan = tp._panel_scan
+    table = tp._plane_table
 
-    def scan_w(*a):
-        T, over = scan(*a)
-        scans.append((a[2], int(over)))
-        return T, over
-    launches["panel rescans"] = uniform_past_caps(
-        "panel buffers of 2^20 entries", gs, run_u,
-        dict(_MAX_DEV_BASES=1 << 20, _panel_caps=lambda *a: (1 << 20,) * 2,
-             _panel_scan=scan_w),
+    def table_w(*a):
+        T = table(*a)
+        scans.append((a[3], len(T[0])))
+        return T
+    launches["panel tables"] = uniform_past_caps(
+        "panel planes in blocks of 2^20 positions", gs, run_u,
+        dict(_MAX_DEV_BASES=1 << 20, PANEL_BLOCK=1 << 20,
+             _plane_table=table_w),
         [("device_tubes", False), ("device_tubes_paneled", True)],
         scans=scans)
-    if not scans or not all(o for _, o in scans[::2]) \
-            or any(o for _, o in scans[1::2]):
-        raise SystemExit(f"past caps: panel scans {scans}")
+    if not scans or any(r != tp._pad_bucket(n) for n, r in scans):
+        raise SystemExit(f"past caps: panel tables {scans}")
     log(f"past caps: phase {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -3537,7 +3536,7 @@ def main(argv):
     log("launches of the sharded route (phase 14 (a), align_genomes(mesh=) "
         "at world size 1): " + json.dumps(launches_sh))
     log("launches past the caps (chain panels / contig windows; GIX "
-        "entries past N / panel rescans): "
+        "entries past N / panel tables): "
         + ", ".join(f"{n} " + " / ".join(str(launches_c[c].get(n, 0))
                                          for c in launches_c)
                     for n in KERNELS))

@@ -108,6 +108,27 @@ def _roll(x, s):
 # Section 1: GIX table arrays on the device
 # ---------------------------------------------------------------------------
 
+_LUTS = {}
+
+
+def _luts(dev):
+    """The candidates' lookup tables on ``dev``, uploaded once a device
+    (``_LUTS`` holds one entry a device, never changed): TMAP (int32),
+    COMP (int64) and the kmer-byte table (int64 [512]): a .bps byte's
+    four bases (first base in the low bits) in kmer order (first base in
+    the high bits) at [0, 256), their complements in reverse order, a
+    reverse-complement kmer's byte, at [256, 512)."""
+    t = _LUTS.get(dev)
+    if t is None:
+        v = np.arange(256, dtype=np.int64)
+        rev = (((v & 3) << 6) | (((v >> 2) & 3) << 4)
+               | (((v >> 4) & 3) << 2) | ((v >> 6) & 3))
+        t = _LUTS[dev] = tuple(torch.as_tensor(x, device=dev) for x in (
+            TMAP.astype(np.int32), COMP.astype(np.int64),
+            np.concatenate([rev, (~v) & 0xFF])))
+    return t
+
+
 def entry_candidates(bases, loc, ln, cranks, in_block):
     """Syncmer entry candidates for a run of positions.
 
@@ -124,8 +145,7 @@ def entry_candidates(bases, loc, ln, cranks, in_block):
 
     b = bases.to(torch.int32)
     n4 = (b << 6) | (_roll(b, -1) << 4) | (_roll(b, -2) << 2) | _roll(b, -3)
-    tmap = torch.as_tensor(TMAP.astype(np.int32), device=dev)
-    compt = torch.as_tensor(COMP.astype(np.int64), device=dev)
+    tmap, compt, _ = _luts(dev)
     n4l = n4.to(torch.int64)
     tf = tmap[n4l]
     tc = tmap[compt[n4l]]
@@ -1362,72 +1382,98 @@ PANEL_BLOCK = 1 << 22        # positions a candidate block covers
 _HALO_LO, _HALO_HI = 32, 64  # bases a candidate reads before / after it
 
 
-def _panel_scan(prep, total, cap, P, panel):
-    """The sorted table of one genome's entries whose 24-bit kmer prefix
-    lies in ``panel``'s range: candidates block by block (PANEL_BLOCK
-    positions, the last one clipped to the genome's end), appended in
-    order at a running offset, then one sort of the panel buffer on the
-    composite entry key.  Returns ((w0, w1, w2, cont, post, comp, lcp, n,
-    valid), over) with ``cap`` rows; ``over`` counts the entries past the
-    cap."""
+def _panel_plane(prep, total, P):
+    """One genome's panel plane: the panel of each of its entry candidate
+    slots, forward slots [0, total) then reverse-complement slots [total,
+    2 * total) as ``entry_candidates`` lays them out, and P where a slot
+    holds no entry.  Panel p holds the 24-bit kmer prefixes whose
+    ``pre24 * P >> 24`` is p (ranges of NPREFIX / P prefixes at a power of
+    two).  The plane takes one byte a slot, two bytes a base (int16 at 256
+    panels or more): 0.22 GiB a 119 Mbp genome, where the panel tables'
+    keys would take 16 bytes an entry.  One pass of ``entry_candidates``
+    over the genome in blocks of PANEL_BLOCK positions (each read with the
+    bases its candidates reach past it), counted under
+    ``devpipe.candidate_blocks``.  Returns (plane, each panel's entries as
+    a list of P ints)."""
     bps, coff, clen, invp, nc, _N = prep
     dev = bps.device
-    lo = panel * (NPREFIX // P)
-    hi = lo + NPREFIX // P
     cstart = coff[:nc].to(torch.int64)
     ilast = 4 * bps.shape[0] - 1
     Cpad = coff.shape[0]
-    buf_a = torch.full((cap + 1,), I64MAX, dtype=torch.int64, device=dev)
-    buf_b = torch.full((cap + 1,), I64MAX, dtype=torch.int64, device=dev)
-    off = torch.zeros((), dtype=torch.int64, device=dev)
+    plane = torch.empty(2 * total, dtype=torch.uint8 if P < 256
+                        else torch.int16, device=dev)
+    counts = torch.zeros(P + 1, dtype=torch.int64, device=dev)
+    nblocks = 0
     for i0 in range(0, total, PANEL_BLOCK):
-        i = torch.arange(i0 - _HALO_LO,
-                         min(i0 + PANEL_BLOCK, total) + _HALO_HI,
-                         dtype=torch.int64, device=dev)
+        i1 = min(i0 + PANEL_BLOCK, total)
+        i = torch.arange(i0 - _HALO_LO, i1 + _HALO_HI, dtype=torch.int64,
+                         device=dev)
         ic = i.clamp(0, ilast)
         bases = ((bps[ic >> 2].to(torch.int32) >> ((ic & 3) << 1)
                   .to(torch.int32)) & 3)
         co = torch.searchsorted(cstart, ic, right=True) - 1
         co = torch.where(ic < total, co, nc + 1)
         coc = co.clamp(0, Cpad - 1)
-        inb = (co < nc) & (i >= i0) & (i < i0 + PANEL_BLOCK)
-        ok, w0, w1, w2, cc, pp, oo = entry_candidates(
+        inb = (co < nc) & (i >= i0) & (i < i1)
+        ok, w0 = entry_candidates(
             bases, (i - coff[coc]).to(torch.int32), clen[coc], invp[coc],
-            inb)
-        pre24 = _u32_64(w0) >> 8
-        ok = ok & (pre24 >= lo) & (pre24 < hi)
-        ka, kb = pack_entry_keys(ok, w0, w1, w2, cc, pp, oo)
-        # order-keeping compaction: each valid row to its rank past the
-        # offset; rows past the cap go to the spare last slot
-        rank = torch.cumsum(ok, 0) - 1 + off
-        dst = torch.where(ok & (rank < cap), rank, cap)
-        buf_a.scatter_(0, dst, ka)
-        buf_b.scatter_(0, dst, kb)
-        off = off + ok.sum()
-    o = lexsort2(buf_a[:cap], buf_b[:cap])
-    w0s, w1s, w2s, cs, ps, os_ = unpack_entry_keys(buf_a[o], buf_b[o])
-    n = off.clamp(max=cap)
-    vs = (torch.arange(cap, device=dev) < n).to(torch.int32)
-    return ((w0s, w1s, w2s, cs, ps, os_, adjacent_lcp(w0s, w1s, w2s), n,
-             vs), (off - cap).clamp(min=0))
+            inb)[:2]
+        pid = torch.where(ok, (_u32_64(w0) >> 8) * P >> 24, P).to(
+            plane.dtype)
+        counts += torch.bincount(pid, minlength=P + 1)
+        L = i.shape[0]
+        for h in (0, 1):
+            plane[h * total + i0:h * total + i1] = \
+                pid[h * L + _HALO_LO:h * L + _HALO_LO + i1 - i0]
+        nblocks += 1
+    prof.count("devpipe.candidate_blocks", nblocks)
+    return plane, counts[:P].tolist()
 
 
-def _panel_caps(N1, N2, P):
-    """A panel's entry buffers at ``P`` panels, one a genome: about 1.1
-    entries a base over P, with 2x slack."""
-    return (_pad_bucket(max((2 * N1) // P, 1 << 14)),
-            _pad_bucket(max((2 * N2) // P, 1 << 14)))
-
-
-def _panel_table(prep, total, cap, P, panel):
-    """``_panel_scan`` at ``cap`` rows, scanned again at its entries'
-    bucket when they pass the cap.  Returns (table, the entries past
-    ``cap`` at the first scan)."""
-    T, over = _panel_scan(prep, total, cap, P, panel)
-    over = int(over)
-    if over:
-        T, _ = _panel_scan(prep, total, _pad_bucket(cap + over), P, panel)
-    return T, over
+def _plane_table(prep, total, plane, n, panel):
+    """The sorted table of one genome's ``n`` entries in ``panel``, from
+    its panel plane (``_panel_plane``): the panel's slots, and at each the
+    entry ``entry_candidates`` gives there, rebuilt by gathers (the
+    contig's rank and the post from the contig tables; each of the kmer's
+    ten bytes from the two .bps bytes it straddles, through the kmer-byte
+    table of ``_luts``), then one sort on the composite entry key.  The
+    table takes the bucket of its entries (``_pad_bucket(n)`` rows, padded
+    with all-ones keys): the plane counted them, so none can pass it.
+    Returns (w0, w1, w2, cont, post, comp, lcp, n, valid)."""
+    bps, coff, clen, invp, nc, _N = prep
+    dev = bps.device
+    s = torch.nonzero(plane == panel).squeeze(1)
+    comp = (s >= total).to(torch.int64)
+    i = s - comp * total
+    co = torch.searchsorted(coff[:nc].to(torch.int64), i, right=True) - 1
+    post = (i - coff[co] + comp * TMER).to(torch.int32)
+    cont = invp[co]
+    # the kmer's byte t: four bases from i + 4t forward, from i + 8 - 4t
+    # (complemented, last base first) reverse; both start i & 3 bases
+    # into a .bps byte
+    b = bps.to(torch.int32)
+    wide = b | (torch.cat([b[1:], torch.zeros_like(b[:1])]) << 8)
+    q = (i >> 2) + 2 * comp
+    step = 1 - 2 * comp
+    shift = (i & 3) << 1
+    lut = _luts(dev)[2]
+    half = comp << 8
+    w = [0, 0, 0]
+    for t in range(KMER // 4):
+        byte = lut[((wide[q + t * step] >> shift) & 0xFF) + half]
+        w[t // 4] = w[t // 4] | (byte << (24 - 8 * (t % 4)))
+    ka, kb = pack_entry_keys(torch.ones((), dtype=torch.bool, device=dev),
+                             w[0], w[1], w[2], cont, post, comp)
+    o = lexsort2(ka, kb)
+    E = _pad_bucket(n)
+    kas = torch.full((E,), I64MAX, dtype=torch.int64, device=dev)
+    kbs = torch.full((E,), I64MAX, dtype=torch.int64, device=dev)
+    kas[:n] = ka[o]
+    kbs[:n] = kb[o]
+    w0s, w1s, w2s, cs, ps, os_ = unpack_entry_keys(kas, kbs)
+    vs = (torch.arange(E, device=dev) < n).to(torch.int32)
+    return (w0s, w1s, w2s, cs, ps, os_, adjacent_lcp(w0s, w1s, w2s),
+            torch.full((), n, dtype=torch.int64, device=dev), vs)
 
 
 def _append_seeds(g1, g2, goff, out, ns):
@@ -1465,17 +1511,21 @@ def device_tubes_paneled(gdb1, gdb2, alens_by_rank, freq: int = 10,
     device_tubes / device_tubes_self and the host path.
 
     ``panels`` 0 takes max(2, 2 * the larger padded genome / 2^24) rounded
-    up to a power of two.  A panel's entries past its buffer
-    (``_panel_caps``) scan again at their bucket (``_panel_table``), and
-    its seeds take their own total's slots.  The global seed buffer starts
-    at the JAX package's GCAP, twice genome 1's bases, and grows to the
-    seeds' bucket where a run needs more.  ``verbose`` prints a line a
-    panel on stderr.  Inside each panel's span ``devpipe.panel``, span
-    ``devpipe.panel_scan`` holds the table scans and
-    ``devpipe.panel_merge`` the merge and the append; counter
-    ``devpipe.panel_rescans`` counts the panels scanned again past their
-    buffers.  (tubes, nseeds, plsum), or None with DECLINE set past a cap
-    checked before any upload."""
+    up to a power of two.  Each genome's candidates are built once, under
+    span ``devpipe.panel_plane``: its panel plane (``_panel_plane``, one
+    byte a candidate slot naming the slot's panel, 2 bytes a base) and
+    each panel's exact entry count.  Each panel's table is then gathered
+    from the plane and sorted at the bucket of its count
+    (``_plane_table``), so no panel passes its table, and its seeds take
+    their own total's slots.  The planes are freed before the chain sweep.
+    The global seed buffer starts at the JAX package's GCAP, twice genome
+    1's bases, and grows to the seeds' bucket where a run needs more.
+    ``verbose`` prints the JAX package's line a panel on stderr (its
+    ``over`` always 0).  Inside each panel's span ``devpipe.panel``, span
+    ``devpipe.panel_scan`` holds the gathers and sorts of the panel's
+    tables and ``devpipe.panel_merge`` the merge and the append.
+    (tubes, nseeds, plsum), or None with DECLINE set past a cap checked
+    before any upload."""
     dev = torch.device("cuda" if device is None else device)
     selfish = gdb2 is None or gdb2 is gdb1
     if selfish:
@@ -1502,20 +1552,21 @@ def device_tubes_paneled(gdb1, gdb2, alens_by_rank, freq: int = 10,
         # a panel's merge stream stays near 16 Mi rows
         P = max(2, -(-(2 * max(N1, N2)) // (1 << 24)))
         P = 1 << (P - 1).bit_length()
+    with prof.span("devpipe.panel_plane", dev):
+        plane1, cnt1 = _panel_plane(prep1, tot1, P)
+        plane2, cnt2 = ((plane1, cnt1) if selfish
+                        else _panel_plane(prep2, tot2, P))
     GCAP = _pad_bucket(max(tot1, 1) * 2)
     g1 = torch.zeros(GCAP, dtype=torch.int64, device=dev)
     g2 = torch.zeros(GCAP, dtype=torch.int64, device=dev)
-    cap1, cap2 = _panel_caps(N1, N2, P)
     goff = plsum = 0
     for p in range(P):
         t0 = time.perf_counter()
         with prof.span("devpipe.panel", dev):
             with prof.span("devpipe.panel_scan", dev):
-                T1, over = _panel_table(prep1, tot1, cap1, P, p)
-                T2 = None
-                if not selfish:
-                    T2, ovb = _panel_table(prep2, tot2, cap2, P, p)
-                    over += ovb
+                T1 = _plane_table(prep1, tot1, plane1, cnt1[p], p)
+                T2 = None if selfish else _plane_table(prep2, tot2, plane2,
+                                                       cnt2[p], p)
             with prof.span("devpipe.panel_merge", dev):
                 out = (_self_seeds_sum(T1, 0, freq) if selfish
                        else _merge_seeds_sum(T1, T2, 0, freq))
@@ -1524,13 +1575,12 @@ def device_tubes_paneled(gdb1, gdb2, alens_by_rank, freq: int = 10,
                            for x in torch.stack([out[6], out[8]]).tolist())
                 if verbose:
                     sys.stderr.write(
-                        f"devpipe panel {p + 1}/{P}: ns={ns} over={over} "
+                        f"devpipe panel {p + 1}/{P}: ns={ns} over=0 "
                         f"{time.perf_counter() - t0:.2f}s\n")
                 g1, g2, goff = _append_seeds(g1, g2, goff, out, ns)
-        if over:
-            prof.count("devpipe.panel_rescans")
         plsum += pls
         out = None
+    plane1 = plane2 = None
     nb = min(_pad_bucket(max(goff, 1 << 13)), g1.shape[0])
     seeds = _unpack_seeds(g1[:nb], g2[:nb]) + (goff, 0, plsum)
     g1 = g2 = None

@@ -2,10 +2,10 @@
 and counters on the port's span record: ``fastga A B`` forced onto the
 paneled route (``_MAX_DEV_BASES`` below the pair) writes the PAF of the
 single-shot route and of the JAX package's command line byte for byte;
-each panel runs one span ``devpipe.panel`` holding one
-``devpipe.panel_scan`` and one ``devpipe.panel_merge``, and
-``devpipe.panel_rescans`` counts the panels scanned again; and the paneled
-routes return the single-shot routes' seeds and tubes."""
+the panel plane runs once under ``devpipe.panel_plane`` and each panel
+runs one span ``devpipe.panel`` holding one ``devpipe.panel_scan`` and one
+``devpipe.panel_merge``; and the paneled routes return the single-shot
+routes' seeds and tubes."""
 
 import contextlib
 import dataclasses
@@ -103,37 +103,26 @@ def test_fastga_paf_through_panels_matches_single_shot_and_jax(
     assert paneled == _run(jcli.main, ["-Eref", A, B])
 
 
-@pytest.mark.parametrize("panels,low", [(2, False), (4, False), (4, True)],
-                         ids=["2 panels", "4 panels", "4 panels, rescans"])
-def test_panel_spans_and_counters(up, monkeypatch, on, panels, low):
-    """Span ``devpipe.panel`` runs once a panel and holds one
-    ``devpipe.panel_scan`` and then one ``devpipe.panel_merge``;
-    ``devpipe.panel_rescans`` counts the panels whose entries passed their
-    buffer (none at the route's caps, each one with genome 1's buffer at
-    64 rows)."""
+@pytest.mark.parametrize("panels", [2, 4, 16],
+                         ids=["2 panels", "4 panels", "16 panels"])
+def test_panel_spans_and_counters(up, on, panels):
+    """Span ``devpipe.panel_plane`` runs once, ahead of the first
+    ``devpipe.panel``, and counter ``devpipe.candidate_blocks`` counts
+    each genome's candidate blocks once (one a genome here) whatever the
+    panel count; span ``devpipe.panel`` runs once a panel and holds one
+    ``devpipe.panel_scan`` and then one ``devpipe.panel_merge``."""
     _, g1, g2, alens = up
-    if low:
-        caps = tp._panel_caps
-        monkeypatch.setattr(tp, "_panel_caps",
-                            lambda *a: (64,) + caps(*a)[1:])
-    overs = []
-    table = tp._panel_table
-
-    def table_w(prep, total, cap, P, p):
-        T, over = table(prep, total, cap, P, p)
-        overs.append((p, over))
-        return T, over
-    monkeypatch.setattr(tp, "_panel_table", table_w)
     got = tp.device_tubes_paneled(g1, g2, alens, panels=panels, device=CPU)
     want = tp.device_tubes(g1, g2, alens, device=CPU)
     assert got[1:] == want[1:]
     c = prof.counters()
-    rescanned = {p for p, over in overs if over}
+    assert c["devpipe.candidate_blocks"] == 2
+    assert "devpipe.panel_rescans" not in c
     assert _calls("devpipe.panel") == panels
-    assert c.get("devpipe.panel_rescans", 0) == len(rescanned)
-    assert len(rescanned) == (panels if low else 0)
+    (plane,) = _names("devpipe.panel_plane")
     outer = {e[0]: e for e in _names("devpipe.panel")}
     assert len(outer) == panels
+    assert plane[5] <= min(e[4] for e in outer.values())
     for inner in ("devpipe.panel_scan", "devpipe.panel_merge"):
         ev = _names(inner)
         assert len(ev) == panels

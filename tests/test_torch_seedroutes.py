@@ -139,60 +139,72 @@ def test_paneled_default_panels_and_verbose(g, capsys):
     assert sum(ns) == got[1] and all(" over=0 " in ln for ln in lines)
 
 
-@pytest.mark.parametrize("cap", ["genome 1", "genome 2", "both"])
-def test_panel_cap_rescans_the_panel(g, monkeypatch, capsys, cap):
-    """A panel's entries past its buffer (here 64 rows) scan again at
-    their bucket: every panel of the lowered genome twice, the second
-    time with room for all its entries, and the JAX package's tubes (it
-    doubles the panels instead)."""
-    caps = tp._panel_caps
-    monkeypatch.setattr(tp, "_panel_caps", lambda N1, N2, P: tuple(
-        64 if cap in (who, "both") else c
-        for who, c in zip(("genome 1", "genome 2"), caps(N1, N2, P))))
-    scans = []
-    scan = tp._panel_scan
-
-    def scan_w(prep, total, c, P, p):
-        T, over = scan(prep, total, c, P, p)
-        scans.append((prep is pre[0], p, c, int(T[7]), int(over)))
-        return T, over
-    pre = []
-    prep = tp._prep_genome
+@pytest.mark.parametrize("who", ["genome 1", "genome 2", "self"])
+def test_panel_tables_take_their_entries_bucket(g, monkeypatch, capsys,
+                                                who):
+    """Each genome's candidates are built once into its panel plane, whose
+    counts size each panel's table at the bucket of its entries: every
+    panel of the genome gathered once, at _pad_bucket of the entries the
+    plane counted, the plane's counts summing to the genome's entries,
+    and the JAX package's tubes (``over`` 0 on every verbose line)."""
+    selfish = who == "self"
+    counts, tables, pre = [], [], []
+    plane, table, prep = tp._panel_plane, tp._plane_table, tp._prep_genome
     monkeypatch.setattr(tp, "_prep_genome", lambda *a: pre.append(
         prep(*a)) or pre[-1])
-    monkeypatch.setattr(tp, "_panel_scan", scan_w)
-    got = tp.device_tubes_paneled(g.tg1, g.tg2, g.alens, panels=4,
-                                  verbose=True, device=CPU)
-    _same(g.jppair, got)
-    for first in (True, False):
-        low = cap in ("both", "genome 1" if first else "genome 2")
-        mine = [x for x in scans if x[0] == first]
-        assert [x[1] for x in mine] == ([0, 0, 1, 1, 2, 2, 3, 3] if low
-                                        else [0, 1, 2, 3])
-        for a, b in zip(mine[::2], mine[1::2]) if low else ():
-            # the first scan keeps 64 entries and counts the rest
-            assert a[2:4] == (64, 64) and a[4] > 0
-            assert b[2] == tp._pad_bucket(64 + a[4])
-            assert b[3:] == (64 + a[4], 0)
+
+    def plane_w(*a):
+        out = plane(*a)
+        counts.append(out[1])
+        return out
+
+    def table_w(prep_, total, pl, n, p):
+        T = table(prep_, total, pl, n, p)
+        tables.append((prep_ is pre[0], p, n, len(T[0]), int(T[7])))
+        return T
+    monkeypatch.setattr(tp, "_panel_plane", plane_w)
+    monkeypatch.setattr(tp, "_plane_table", table_w)
+    got = tp.device_tubes_paneled(g.tg1, None if selfish else g.tg2,
+                                  g.alens, panels=4, verbose=True,
+                                  device=CPU)
+    _same(g.jpself if selfish else g.jppair, got)
+    first = who != "genome 2"
+    gd = g.tg1 if first else g.tg2
+    lens = gd.contig_lengths()
+    N = tp._pad_bucket(int(lens.sum()))
+    full = int(tp._full_table({}, gd, lens, N, CPU)[7])
+    assert len(counts) == (1 if selfish else 2)
+    cnt = counts[0 if first else 1]
+    assert sum(cnt) == full
+    mine = [x[1:] for x in tables if x[0] == first]
+    assert mine == [(p, cnt[p], tp._pad_bucket(cnt[p]), cnt[p])
+                    for p in range(4)]
     overs = [int(ln.split("over=")[1].split()[0])
              for ln in capsys.readouterr().err.splitlines()]
-    assert len(overs) == 4 and all(o > 0 for o in overs)
+    assert overs == [0] * 4
 
 
 def test_panel_entries_past_their_buffer_stay_on_card(g, monkeypatch,
                                                       capsys, no_waves):
     """Through align_genomes (the single-shot route declined on its bases
-    first), self panels whose entries pass a 64-row buffer at any panel
-    count, where the JAX package declines past its most panels: the
-    panels scan again, and the run seeds on the card with the JAX
-    package's seeds, tubes and seed-length average."""
-    caps = tp._panel_caps
-    monkeypatch.setattr(tp, "_panel_caps",
-                        lambda *a: (64,) + caps(*a)[1:])
+    first), self panels from a plane built in blocks of 1,000 positions:
+    no panel's entries pass its table, which takes their bucket, and the
+    run seeds on the card with the JAX package's seeds, tubes and
+    seed-length average."""
+    monkeypatch.setattr(tp, "PANEL_BLOCK", 1000)
+    sizes = []
+    table = tp._plane_table
+
+    def table_w(*a):
+        T = table(*a)
+        sizes.append((a[3], len(T[0])))
+        return T
+    monkeypatch.setattr(tp, "_plane_table", table_w)
     calls = _routes(monkeypatch)
     monkeypatch.setattr(tp, "_MAX_DEV_BASES", 1000)
     _, stats = tal.align_genomes(g.tg1, g.tg1, device="cpu")
     assert calls == ["device_tubes_self", "device_tubes_paneled"]
+    assert sizes and all(r == tp._pad_bucket(n) for n, r in sizes)
     _device_stats(stats, g.jself, capsys)
 
 
@@ -284,8 +296,9 @@ def test_entries_past_the_jax_cap_stay_on_card(g, monkeypatch, capsys,
     and align_genomes seeds on the card, with the JAX host path's seeds,
     tubes and seed-length average.  Through the paneled route at four
     panels the poly-A entries crowd the first kmer panel (A...) and their
-    reverse complements the last (T...) past their buffers, which scan
-    again."""
+    reverse complements the last (T...): each genome's table of each
+    panel is gathered once, at the bucket of its entries, the first and
+    last the largest."""
     selfish, sym = case.endswith("self"), case == "-S"
     paneled = case.startswith("paneled")
 
@@ -303,16 +316,20 @@ def test_entries_past_the_jax_cap_stay_on_card(g, monkeypatch, capsys,
             tp._full_table({}, gd, lens, N, CPU)[7]) > N
     calls = _routes(monkeypatch)
     scans = []
-    scan = tp._panel_scan
-    monkeypatch.setattr(tp, "_panel_scan", lambda *a: scans.append(
-        a[4]) or scan(*a))
+    table = tp._plane_table
+    monkeypatch.setattr(tp, "_plane_table", lambda *a: scans.append(
+        (a[4], a[3])) or table(*a))
     if paneled:
         got = tp.device_tubes_paneled(g1, None if selfish else g2,
                                       _alens(g1.contig_lengths()),
                                       panels=4, device=CPU)
-        # each genome's scans of each panel: twice for the first and last
+        # each genome's table of each panel once; g1's poly-A entries
+        # crowd its first and last panels
         k = 1 if selfish else 2
-        assert [scans.count(p) for p in range(4)] == [2 * k, k, k, 2 * k]
+        assert [p for p, _ in scans] == [p for p in range(4)
+                                         for _ in range(k)]
+        n1 = [n for _, n in scans[::k]]
+        assert min(n1[0], n1[3]) > max(n1[1], n1[2])
     else:
         _, stats = tal.align_genomes(g1, g2, device="cpu", symmetric=sym)
         assert calls == ["device_tubes_self" if selfish else "device_tubes"]

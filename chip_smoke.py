@@ -79,7 +79,7 @@ Phases (every one runs; any failure exits non-zero before the summary):
    device_tubes_paneled(panels=4) on the uniform and repeat-rich pairs and
    on A as self equals phases 4-5 and the self run; the uniform pair at
    2,560 x 50 kb (128 Mbp a side, past _MAX_DEV_BASES) goes through
-   device_tubes' decline to device_tubes_paneled, with every kernel
+   device_tubes_paneled alone, with every kernel
    launched and the TubeBatch of a single-shot device_tubes (its
    _MAX_DEV_BASES raised for that one call; at 96 Mbp if 128 Mbp does not
    fit on the card); each route's peak device memory; then merge_path
@@ -834,7 +834,8 @@ class SeedCapture:
     (device_tubes, device_tubes_self, device_tubes_paneled,
     device_tubes_tables) for one run, to keep the inputs the run gave the
     kernels (per merge column count and per scan spec, the largest call),
-    each route called with whether it declined and its peak device memory
+    each route called with whether it declined (a ``Declined`` it passes
+    on) and its peak device memory
     (``max_memory_allocated`` above the allocation at its start), the
     TubeBatch and arguments of the route that returned one, the panel
     counts the paneled route ran at, the reason of each route that
@@ -919,14 +920,16 @@ class SeedCapture:
                 torch.cuda.synchronize()
                 base = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
-                res = orig[name](*a, **k)
+                try:
+                    res = orig[name](*a, **k)
+                except tp.Declined as e:
+                    self.routes.append((name, False))
+                    self.reasons.append(e.reason)
+                    raise
                 torch.cuda.synchronize()
                 self.mem[name] = torch.cuda.max_memory_allocated() - base
-                self.routes.append((name, res is not None))
-                if res is None:
-                    self.reasons.append(tp.DECLINE)
-                if res is not None:
-                    self.tubes, self.tubes_args = res, (a, k)
+                self.routes.append((name, True))
+                self.tubes, self.tubes_args = res, (a, k)
                 return res
             return w
 
@@ -1974,7 +1977,7 @@ def run_self(g, host_ref):
     log(f"self: device_tubes_self, {cap.tubes[1]:,} seeds, "
         f"{cap.tubes[0].n:,} tubes, chain in {cap.chain_panels} A-contig "
         f"panels")
-    route_alone("self (its GIX table cached)", "device_tubes_self",
+    route_alone("self", "device_tubes_self",
                 *cap.tubes_args)
     check_host_self(cap.tubes, host_ref)
     return cap, launches
@@ -2080,7 +2083,7 @@ def single_shot(g1, g2, what):
 def run_big():
     """The 128 Mbp uniform pair: first a single-shot device_tubes of it
     (its _MAX_DEV_BASES raised), then align_genomes, which must route it
-    to device_tubes_paneled on the card (device_tubes declines past
+    to device_tubes_paneled alone on the card (a genome past
     _MAX_DEV_BASES) and give the same TubeBatch.  If the single-shot route
     does not fit on the card, the comparison runs at 96 Mbp (the paneled
     route called directly)."""
@@ -2096,8 +2099,7 @@ def run_big():
         ovls, stats, wall = run_main_path("uniform128", g1, g2)
         launches = dict(cuda_build.LAUNCHES)
     del ovls
-    check_routes("uniform128", cap, [("device_tubes", False),
-                                     ("device_tubes_paneled", True)])
+    check_routes("uniform128", cap, [("device_tubes_paneled", True)])
     if stats.get("seed_pipeline") != "device":
         raise SystemExit(f"uniform128: seed pipeline "
                          f"{stats.get('seed_pipeline')}")
@@ -2123,25 +2125,15 @@ def run_big():
     return cap, launches
 
 
-def drop_device_tables(gdbs):
-    """Free the GIX tables the device pipeline cached on these GDBs."""
-    import torch
-    for g in gdbs:
-        vars(g).pop("_fastga_torch_dev_cache", None)
-    torch.cuda.empty_cache()
-
-
 def phase_seed_routes(g_rr, rr_ref, u_ref, host_self):
     """Phase 10: the self and kmer-panel seed routes on the card, then
     merge_path and fused_scan against their plain versions on the largest
     inputs of each column count and spec these routes gave them.  The 128
-    Mbp pair runs first, with the earlier phases' cached device tables
-    freed: its single-shot reference needs most of the card.
+    Mbp pair runs first: its single-shot reference needs most of the
+    card.
     ``host_self``: the self run's host reference."""
     t0 = time.perf_counter()
     merge, scan = {}, {}
-    drop_device_tables([g_rr] + list(rr_ref[1][0][:2])
-                       + list(u_ref[1][0][:2]))
     cap_b, launches_b = run_big()
     cap_b.fold_into(merge, scan)
     del cap_b
@@ -2310,8 +2302,6 @@ def device_route(what, fn, *args, **kw):
         got = fn(*args, device="cuda", **kw)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-    if got is None:
-        raise SystemExit(f"{what}: declined on the card ({cap.routes})")
     fit_lines(what, cap)
     return got, cap, dt
 
@@ -2368,7 +2358,7 @@ def phase_masks(gs, refs):
     same_as_host("-S", res, ref["-S"], dt)
     cap.fold_into(merge, scan)
     del cap
-    route_alone("-S (genome tables cached)", "device_tubes",
+    route_alone("-S", "device_tubes",
                 (g1, g2, alens), dict(symmetric=True, device="cuda"))
     launches = {
         "-M": main_path_route("masked -M", g1, g2, "device_tubes_tables",
@@ -2503,8 +2493,8 @@ def chain_past_caps(name, gs, rr_ref, run_rr, kw, t_dev):
 
 def uniform_past_caps(name, gs, run_u, kw, routes, want=None, scans=None):
     """align_genomes on the uniform pair ``gs`` with device_pipeline's caps
-    set to ``kw``: seeded on the card by ``routes`` (the single-shot
-    route's decline before upload, then the paneled route), with phase
+    set to ``kw``: seeded on the card by ``routes`` (one route, the
+    paneled one past a lowered _MAX_DEV_BASES), with phase
     4's records and no decline printed, and phase 4's seeds and tubes or
     ``want``'s (the host path's TubeBatch and seed count); ``scans`` lists
     each ``_plane_table`` call's (entries, rows)."""
@@ -2610,7 +2600,7 @@ def phase_past_caps(gs_rr, rr_ref, run_rr, run_u):
     del host, tab, seeds
     launches["entries"] = uniform_past_caps(
         "GIX entries past N", gs, run_u, {}, [("device_tubes", True)], want)
-    gs = uniform_gdbs()     # new GDBs: no cached device tables
+    gs = uniform_gdbs()     # the plain pair, without the poly-A contig
     scans = []
     table = tp._plane_table
 
@@ -2622,8 +2612,7 @@ def phase_past_caps(gs_rr, rr_ref, run_rr, run_u):
         "panel planes in blocks of 2^20 positions", gs, run_u,
         dict(_MAX_DEV_BASES=1 << 20, PANEL_BLOCK=1 << 20,
              _plane_table=table_w),
-        [("device_tubes", False), ("device_tubes_paneled", True)],
-        scans=scans)
+        [("device_tubes_paneled", True)], scans=scans)
     if not scans or any(r != tp._pad_bucket(n) for n, r in scans):
         raise SystemExit(f"past caps: panel tables {scans}")
     log(f"past caps: phase {time.perf_counter() - t0:.1f} s")
@@ -3139,8 +3128,6 @@ def sharded_seeds(mesh, g1, g2):
         rep = prof.report()
     finally:
         prof.ENABLED = False
-    if res is None:
-        raise SystemExit(f"sharded_tubes at {mesh.size} ranks declined")
     return res, dt, peak, {k: rep[k][0] for k in SHARD_SPANS if k in rep}
 
 
@@ -3399,7 +3386,6 @@ def phase_sharded(gs_rr, rr_tubes, u_tubes, host_self, run_rr, run_u):
     merge, scan = {}, {}
     cap.fold_into(merge, scan)
     del cap
-    drop_device_tables(gs_rr[:2])
     torch.cuda.empty_cache()
     res, wall = spawn_ranks(2, "repeatrich")
     check_ranks("sharded D=2 repeatrich", res, rr_tubes, run_rr,

@@ -12,6 +12,7 @@ import sys
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
+from ..ops.constants import KMER
 from ..utils import prof
 
 FASTA_EXTS = (".fa", ".fasta", ".fna", ".fa.gz", ".fasta.gz", ".fna.gz")
@@ -123,8 +124,7 @@ def resolve_genome(path: str, nthreads: int = 8, keep: bool = False,
     pulls the implicit `.1ano` even without explicit # args.  With
     ``lazy`` and no masking in play, FASTA/GDB inputs return table=None
     so the caller's device pipeline can build the index on the card.  An
-    index built here, with its masks, comes from ``build_gix_device`` on
-    ``device`` at k = 40 and ``nthreads`` 8, else from the host.
+    index built here, with its masks, comes from ``build_index``.
     """
     from ..io import ano as anom
     from ..io import gdb as gdbm
@@ -173,15 +173,25 @@ def resolve_genome(path: str, nthreads: int = 8, keep: bool = False,
             if verbose:
                 sys.stderr.write(f"  Creating genome index (GIX) {root}.gix"
                                  f"{' (in memory)' if not keep else ''}\n")
-            if nthreads == 8:
-                from ..ops.device_pipeline import build_gix_device
-                table = build_gix_device(gdb, device, masks=gix_masks)
-            else:
-                table = gixm.build_gix(gdb, nthreads=nthreads,
-                                       masks=gix_masks)
+            table = build_index(gdb, nthreads, device, gix_masks)
             if keep:
                 gixm.write_gix(table, root, nthreads=nthreads)
         return gdb, table
+
+
+def index_on_card(kmer: int, nthreads: int) -> bool:
+    """Whether ``build_index`` builds on the card (k = 40, -T8)."""
+    return kmer == KMER and nthreads == 8
+
+
+def build_index(gdb, nthreads: int, device, masks=None, kmer: int = KMER):
+    """``gdb``'s GIX table with ``masks``' bytes: ``build_gix_device`` on
+    ``device`` where ``index_on_card``, else the host's ``build_gix``."""
+    if index_on_card(kmer, nthreads):
+        from ..ops.device_pipeline import build_gix_device
+        return build_gix_device(gdb, device, masks=masks)
+    from ..io import gix as gixm
+    return gixm.build_gix(gdb, kmer=kmer, masks=masks, nthreads=nthreads)
 
 
 def resolve_gdb(path: str, verbose: bool = False):

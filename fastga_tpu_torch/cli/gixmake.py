@@ -3,10 +3,9 @@
     python -m fastga_tpu_torch.cli.gixmake [-v] [-L:<log>] [-T<int>] [-P<dir>]
         [-k<int>] <source> (#<mask>)*
 
-Port of fastga_tpu/cli/gixmake.py.  At k = 40 and -T8 the index, with
-its #mask bytes, is built on the card (ops/device_pipeline.build_gix_device;
-``main(argv, device="cpu")`` runs the kernels' plain versions); any other
-k or -T builds it on the host (io/gix.build_gix).
+Port of fastga_tpu/cli/gixmake.py.  cli/_common.build_index builds the
+index with its #mask bytes: on the card at k = 40 and -T8 (``main(argv,
+device="cpu")`` runs the kernels' plain versions), else on the host.
 """
 
 from __future__ import annotations
@@ -19,7 +18,6 @@ from ..io import ano as anom
 from ..io import gdb as gdbm
 from ..io import gix as gixm
 from ..models.aligner import resolve_device
-from ..ops.constants import KMER
 
 USAGE = ("[-v] [-L:<log:path>] [-T<int(8)>] [-P<dir>] [-k<int(40)>] "
          "<source>[.1gdb|<fa>] (#<mask:.1ano>)*")
@@ -35,8 +33,8 @@ def main(argv=None, device=None) -> int:
         raise _common.ArgError("gixmake", "expects one source", USAGE)
     nthreads = int(opts.get("T") or 8)
     kmer = int(opts.get("k") or 40)
-    on_card = kmer == KMER and nthreads == 8
-    if on_card:
+    dev = None
+    if _common.index_on_card(kmer, nthreads):
         try:
             dev = resolve_device(device)
         except RuntimeError as e:
@@ -60,13 +58,8 @@ def main(argv=None, device=None) -> int:
         ano_file = Path(str(root) + ".1ano")
         masks = anom.read_ano(ano_file, gdb) if ano_file.exists() else None
 
-    gix_masks = masks if mask_args else None
-    if on_card:
-        from ..ops.device_pipeline import build_gix_device
-        table = build_gix_device(gdb, dev, masks=gix_masks)
-    else:
-        table = gixm.build_gix(gdb, kmer=kmer, masks=gix_masks,
-                               nthreads=nthreads)
+    table = _common.build_index(gdb, nthreads, dev,
+                                masks if mask_args else None, kmer)
     gixm.write_gix(table, root, nthreads=nthreads)
     ktot = gdb.seqtot - (kmer - 1) * gdb.ncontig
     stat = (f"  Sampled: {table.n} ({100.0*table.n/ktot:.1f}%) "

@@ -116,6 +116,17 @@ def _length_perm(contig_lens: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return perm, invp
 
 
+def contig_order(lens: np.ndarray, nthreads: int = 8, kmer: int = KMER):
+    """A GIX table's contig order: short_GDB_fix (GIXmake.c:1605-1624: a
+    GDB with fewer contigs than threads gets fake ``kmer``-length contigs
+    that emit no entries but appear in the persisted perm/ncontig), then
+    the descending-length stable permutation.  Returns (padded lengths,
+    perm, inverse perm)."""
+    nfake = max(0, nthreads - len(lens))
+    lens_eff = np.concatenate([lens, np.full(nfake, kmer, dtype=np.int64)])
+    return (lens_eff,) + _length_perm(lens_eff)
+
+
 def _bytes_for(maxval: int) -> int:
     b, cum = 0, 1
     while cum < maxval:
@@ -133,19 +144,13 @@ def build_gix(gdb: GDB, kmer: int = KMER, masks=None,
     ``gix.card_tables`` counts the masked tables built on the card by
     ops.device_pipeline.build_gix_device).
     ``nthreads``: reference -T; only affects the short-GDB fake-contig
-    padding (short_GDB_fix GIXmake.c:1605-1624: GDBs with fewer contigs than
-    threads get fake KMER-length contigs that emit no entries but appear in
-    the persisted perm/ncontig) and the NPARTS choice at write time.
+    padding (``contig_order``) and the NPARTS choice at write time.
     """
     assert kmer % 4 == 0
     with prof.span("gix.build"):
         kb = kmer // 4
         lens = gdb.contig_lengths()
-        # short_GDB_fix: pad with fake KMER-length contigs up to nthreads
-        nfake = max(0, nthreads - len(lens))
-        lens_eff = np.concatenate([lens,
-                                   np.full(nfake, kmer, dtype=np.int64)])
-        perm, invp = _length_perm(lens_eff)
+        lens_eff, perm, invp = contig_order(lens, nthreads, kmer)
 
         mask_by_ctg = {}
         if masks:
@@ -171,7 +176,7 @@ def build_gix(gdb: GDB, kmer: int = KMER, masks=None,
             post_bytes=_bytes_for(int(lens_eff.max()) if len(lens_eff)
                                   else 1),
             cont_bytes=_bytes_for(2 * len(lens_eff)),
-            seqtot=gdb.seqtot + nfake * kmer,
+            seqtot=gdb.seqtot + (len(lens_eff) - len(lens)) * kmer,
         )
 
 

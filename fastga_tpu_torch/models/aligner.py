@@ -4,7 +4,7 @@ Port of fastga_tpu/models/aligner.py.  The tubes come from the device
 seed pipeline (ops/device_pipeline.py: GIX tables, adaptamer merge and
 chain sweep on the card; host GIX tables uploaded where masks are in play
 or a self comparison has its table; streamed in kmer panels past the
-single-shot bases); an input the device routes decline before upload and
+single-shot bases); an input its route declines before upload and
 the exact engine build them on the host (io/gix, ops/merge, ops/chain),
 from the caller's GIX tables where it passes them.  The per-tube
 anti-diagonal tiling loop around Local_Alignment
@@ -27,7 +27,7 @@ import numpy as np
 
 from ..io.alncode import Overlap
 from ..io.gdb import GDB
-from ..io.gix import GixTable, _length_perm, build_gix
+from ..io.gix import GixTable, build_gix, contig_order
 from ..ops import chain as chainm
 from ..ops import device_pipeline as devp
 from ..ops import merge as mergem
@@ -90,16 +90,14 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
     for small and long batches and the W=512/2048 rescue lanes).
 
     With ``engine="torch"`` the tubes come from the device seed pipeline
-    (ops/device_pipeline.py) on ``device`` (``_device_seeds``): masks, or a
-    self comparison with ``t1``, upload the host GIX tables (``t1``/``t2``,
-    else ``build_gix``); a pair with ``symmetric`` takes the -S route; any
-    other run the single-shot route, or kmer-panel streaming where that
-    declines (a genome past 96 Mi bases).  A self comparison ignores
-    ``symmetric``.  An input the device routes decline before uploading
+    (ops/device_pipeline.py) on ``device``, on the one route the input
+    calls for (``_device_seeds``; masks, or a self comparison with ``t1``,
+    upload ``t1``/``t2``, else ``build_gix``'s tables).  A self comparison
+    ignores ``symmetric``.  An input its route declines before uploading
     anything (a cap of the JAX package, e.g. ``freq`` above 10, or a -S
-    pair past 96 Mi bases) is printed on stderr with the last reason and
-    seeded on the host, as is every run of ``engine="ref"``; once a route
-    has uploaded, it finishes on the device, and an error there raises.
+    pair past 96 Mi bases) is printed on stderr with the reason and seeded
+    on the host, as is every run of ``engine="ref"``; once a route has
+    uploaded, it finishes on the device, and an error there raises.
     ``stats["seed_pipeline"]`` says which ran, and ``verbose`` prints it
     on stderr.
 
@@ -125,14 +123,10 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
         kmer0 = t1.kmer if t1 is not None else KMER
 
         def _perm_of(t, lens):
-            # a table's contig order, else the host tables': descending
-            # length, padded with fake KMER-length contigs to 8 (build_gix's
-            # short-GDB fix)
+            # a table's contig order, else the host tables' (build_gix's)
             if t is not None:
                 return np.asarray(t.perm)
-            lens_eff = np.concatenate(
-                [lens, np.full(max(0, 8 - len(lens)), kmer0, np.int64)])
-            return np.asarray(_length_perm(lens_eff)[0])
+            return np.asarray(contig_order(lens, kmer=kmer0)[1])
 
         perm1 = _perm_of(t1, lens1)
         perm2 = perm1 if selfcmp else _perm_of(t2, lens2)
@@ -160,7 +154,7 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
                        and not (selfcmp and t1 is not None))
             dres = _device_seeds(gdb1, None if selfcmp else gdb2, tables,
                                  alens_by_rank, amax, bmax, params, symmetric,
-                                 dev, mesh if sharded else None)
+                                 dev, stats, mesh if sharded else None)
             if dres is not None:
                 if sharded:
                     stats["sharded"] = mesh.size
@@ -168,13 +162,6 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
                 stats["nseeds"] = nseeds
                 stats["seed_len_avg"] = (plsum / nseeds) if nseeds else 0.0
                 stats["seed_pipeline"] = "device"
-            else:
-                # never silent: the reference takes any -f / contig count
-                reason = devp.DECLINE
-                sys.stderr.write(
-                    f"fastga_tpu: device seed pipeline declined ({reason}); "
-                    f"using host seed pipeline\n")
-                stats["seed_decline"] = reason
         if tubes is None:
             with prof.span("aligner.gix"):
                 if t1 is None:
@@ -247,38 +234,45 @@ def align_genomes(gdb1: GDB, gdb2: GDB,
 
 
 def _device_seeds(gdb1, gdb2, tables, alens_by_rank, amax, bmax, params,
-                  symmetric, dev, mesh=None):
-    """Tubes from the device seed pipeline, on the route the input takes:
-    the sharded pipeline over the ranks of ``mesh`` when one is given;
-    host GIX tables (``tables`` = (t1, t2), t2 t1 for self) uploaded by
-    ``device_tubes_tables``, with the -S flip pass for a pair; a pair with
-    ``symmetric`` by ``device_tubes(symmetric=True)``; otherwise the
-    single-shot route of a pair (``device_tubes``) or of one genome
-    (``gdb2`` None, ``device_tubes_self``), then, if that declines,
-    kmer-panel streaming.  None when the route declines (``devp.DECLINE``
-    names the last reason); an error on the device propagates."""
+                  symmetric, dev, stats, mesh=None):
+    """(tubes, nseeds, plsum) from the one device seed route the input
+    calls for: ``sharded_tubes`` over the ranks of ``mesh``; host GIX
+    ``tables`` (t1, t2; t2 t1 for self) by ``device_tubes_tables``, with
+    the -S flip pass for a pair; a -S pair by ``device_tubes(symmetric=
+    True)``; kmer panels where a genome is past ``devp._MAX_DEV_BASES``;
+    else ``device_tubes``, or for one genome (``gdb2`` None)
+    ``device_tubes_self``.  A route's ``devp.Declined`` (raised before any
+    upload) goes to stderr and ``stats["seed_decline"]``, and the result is
+    None (the host seeds the run); an error on the device propagates."""
     kw = dict(freq=params.freq, chain_break=params.chain_break,
               chain_min=params.chain_min, device=dev)
-    devp.DECLINE = None
-    with prof.span("aligner.devpipe"):
-        if mesh is not None:
-            return shardm.sharded_tubes(gdb1, gdb2, alens_by_rank, mesh,
-                                        **kw)
-        if tables is not None:
-            return devp.device_tubes_tables(
-                tables[0], tables[1], alens_by_rank, amax, bmax,
-                soft_mask=params.soft_mask,
-                symmetric=symmetric and gdb2 is not None, **kw)
-        if symmetric and gdb2 is not None:
-            return devp.device_tubes(gdb1, gdb2, alens_by_rank,
-                                     symmetric=True, **kw)
-        if gdb2 is None:
-            dres = devp.device_tubes_self(gdb1, alens_by_rank, **kw)
-        else:
-            dres = devp.device_tubes(gdb1, gdb2, alens_by_rank, **kw)
-        if dres is None:
-            dres = devp.device_tubes_paneled(gdb1, gdb2, alens_by_rank, **kw)
-    return dres
+    pair = gdb2 is not None
+    try:
+        with prof.span("aligner.devpipe"):
+            if mesh is not None:
+                return shardm.sharded_tubes(gdb1, gdb2, alens_by_rank, mesh,
+                                            **kw)
+            if tables is not None:
+                return devp.device_tubes_tables(
+                    tables[0], tables[1], alens_by_rank, amax, bmax,
+                    soft_mask=params.soft_mask, symmetric=symmetric and pair,
+                    **kw)
+            if symmetric and pair:
+                return devp.device_tubes(gdb1, gdb2, alens_by_rank,
+                                         symmetric=True, **kw)
+            if any(int(g.contig_lengths().sum()) > devp._MAX_DEV_BASES
+                   for g in (gdb1, gdb2) if g is not None):
+                return devp.device_tubes_paneled(gdb1, gdb2, alens_by_rank,
+                                                 **kw)
+            if pair:
+                return devp.device_tubes(gdb1, gdb2, alens_by_rank, **kw)
+            return devp.device_tubes_self(gdb1, alens_by_rank, **kw)
+    except devp.Declined as e:
+        # never silent: the reference takes any -f / contig count
+        sys.stderr.write(f"fastga_tpu: device seed pipeline declined "
+                         f"({e.reason}); using host seed pipeline\n")
+        stats["seed_decline"] = e.reason
+        return None
 
 
 def _ref_align(tubes, perm1, perm2, lens1, lens2, spec, params, get_a,

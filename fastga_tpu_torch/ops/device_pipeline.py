@@ -22,15 +22,13 @@ the device and chained once.  Only the tube arrays come back to the host;
 the counts are the only other host syncs.
 
 Semantics are those of the host path (ops/merge.py, ops/chain.py): the same
-TubeBatch, seed count and seed-length sum.  The checks that need nothing on
-the device (total bases, table entries, contig count, field widths, freq)
-are the JAX package's and decline before any upload with its reasons: the
-function returns None and sets ``DECLINE``, and the caller tries the next
-route.  Once the tables are on the device every size follows the device's
-own counts, so a run that starts there ends there; an error on the card,
-out of memory included, reaches the caller.  Where the JAX package has a
-static cap after upload, the port sizes to the count instead and gives the
-same records:
+TubeBatch, seed count and seed-length sum.  The JAX package's checks that
+need nothing on the device (``decline_reason``) are made once a route: past
+one, it raises ``Declined`` with the JAX reason before any upload.  Once
+the tables are on the device every size follows the device's own counts,
+so a run that starts there ends there; an error on the card, out of memory
+included, reaches the caller.  Where the JAX package has a static cap after
+upload, the port sizes to the count instead and gives the same records:
 - a genome's GIX table keeps all its entries (the JAX package declines past
   max(4096, N));
 - a seed expansion takes its own total's bucket of slots, read once before
@@ -44,9 +42,10 @@ same records:
   acont-sorted seeds one at a time, and a contig with more seeds than a
   range takes a window of its own seeds' bucket (the JAX package sweeps
   on the host past a paneled cap or such a contig);
-- a kmer panel whose entries pass its buffer rescans at their bucket, and
-  the paneled global seed buffer grows to its seeds (the JAX package
-  doubles the panels up to a limit, then declines).
+- each kmer panel's table takes the bucket of its entries, counted once a
+  genome in its panel plane, and the paneled global seed buffer grows to
+  its seeds (the JAX package doubles the panels up to a limit, then
+  declines).
 The XLA sorts of the JAX pipeline are ``torch.sort`` here; its one-key
 sort that compacts the kept seeds of a masked or -S pass is a stable
 compaction (``_compact``).
@@ -67,7 +66,6 @@ import numpy as np
 import torch
 
 from ..io import gix as gixm
-from ..io.gix import _length_perm
 from ..utils import prof
 from ..utils.dna import compress
 from .chain import TubeBatch
@@ -87,17 +85,6 @@ MAX_POST = 1 << 28        # "at most several thousand contigs")
 MAX_FREQ = 10             # device freq cap (window-min packing: 6+3
                           # six-bit values per value word); higher -f
                           # takes the host merge
-
-# Why the last device_tubes call declined (returned None, before any
-# upload); the aligner prints it on stderr and records it in stats, so
-# cap-based host seeding is never silent.
-DECLINE = None
-
-
-def _decline(reason):
-    global DECLINE
-    DECLINE = reason
-    return None
 
 
 def _roll(x, s):
@@ -1009,14 +996,50 @@ def chain_tubes_dev(seeds, ns, amax: int, bmax: int, alens_by_rank,
 
 
 # ---------------------------------------------------------------------------
-# Wrapper: GDB pair -> TubeBatch (None with DECLINE set before any upload)
+# Wrapper: GDB pair -> TubeBatch (Declined before any upload)
 # ---------------------------------------------------------------------------
 
 # The JAX package's sizes, set for a 16 GB device and kept as they are so
 # that both packages take the same routes.
 _MAX_DEV_BASES = (1 << 26) + (1 << 25)   # single-shot bases per genome
-_CACHE_MAX_N = 1 << 25                   # largest padded genome cached
+MAX_ROWS = 1 << 26                       # rows of an uploaded GIX table
 CHAIN_DEV_CAP = 3 << 23                  # largest monolithic seed bucket
+
+
+class Declined(Exception):
+    """A seed route's input past a cap of the card (``decline_reason``),
+    raised before anything goes up; ``reason`` is the JAX package's."""
+
+    @property
+    def reason(self):
+        return self.args[0]
+
+
+def decline_reason(lens=(), freq=None, single_shot=False, rows=(),
+                   ncontig=(), widths=()):
+    """Why the card cannot take an input (the JAX package's words), or
+    None: every cap a route checks before its upload.  ``lens``: the
+    genomes' contig lengths (self gives its genome twice); a table route
+    gives its tables' contig counts (``ncontig``), longest contigs
+    (``widths``: amax, bmax) and ``rows`` instead.  ``single_shot`` adds
+    the single-shot bases cap, ``freq`` the merge's.  The first cap
+    passed is named: empty, bases, rows, contigs, field width, freq."""
+    if any(len(x) == 0 for x in lens):
+        return "empty genome"
+    ncontig = tuple(ncontig) + tuple(len(x) for x in lens)
+    widths = tuple(widths) + tuple(int(x.max()) for x in lens)
+    if single_shot and max(int(x.sum()) for x in lens) > _MAX_DEV_BASES:
+        return "genome exceeds single-shot device bases"
+    if max(rows, default=0) >= MAX_ROWS:
+        return "GIX table exceeds 2^26 entries"
+    if max(ncontig) >= MAX_CONT:
+        return f">= {MAX_CONT} contigs"
+    amax, bmax = widths[0], widths[-1]
+    if amax + 2 * bmax >= (1 << 30) or max(widths) >= MAX_POST:
+        return "contig length exceeds device field width"
+    if freq is not None and freq > MAX_FREQ:
+        return f"-f {freq} > device merge cap {MAX_FREQ}"
+    return None
 
 
 def _pad_bucket(n: int) -> int:
@@ -1054,9 +1077,7 @@ def _prep_genome(gdb, lens, device):
             basespad[pos:pos + len(c)] = c
             pos += len(c)
         bps = compress(basespad)
-    lens_eff = np.concatenate(
-        [lens, np.full(max(0, 8 - len(lens)), KMER, np.int64)])
-    _, invp = _length_perm(lens_eff)
+    invp = gixm.contig_order(lens)[2]
     Cpad = 1 << max(3, (len(lens) - 1).bit_length())
     tabs = np.zeros((3, Cpad), np.int32)
     tabs[0, :len(lens)] = coff
@@ -1076,29 +1097,13 @@ def driver_table(C, ecap: int):
     return unpack_entry_keys(ka[o], kb[o]) + (None, nf, None)
 
 
-def _dev_cache(gdb, N, device):
-    """Per-GDB, per-device cache of the seed phase's device tables (the
-    analog of the reference's persisted .gix); genomes above _CACHE_MAX_N
-    padded bases are not cached."""
-    if N > _CACHE_MAX_N:
-        return {}
-    caches = getattr(gdb, "_fastga_torch_dev_cache", None)
-    if caches is None:
-        caches = gdb._fastga_torch_dev_cache = {}
-    return caches.setdefault(str(device), {})
-
-
-def _full_table(cache, gdb, lens, N, device):
-    """One genome's sorted two-orientation GIX table (cached per GDB),
-    trimmed to its entries' bucket."""
-    T = cache.get(("tab", N))
-    if T is None:
-        bps, coff, clen, invp, nc, _ = _prep_genome(gdb, lens, device)
-        Tf = gix_arrays(bps, coff, clen, invp, nc)
-        Et = min(_pad_bucket(int(Tf[7])), 2 * N)
-        T = tuple(x[:Et] for x in Tf[:7]) + (Tf[7], Tf[8][:Et])
-        cache[("tab", N)] = T
-    return T
+def _full_table(gdb, lens, device):
+    """One genome's sorted two-orientation GIX table, trimmed to its
+    entries' bucket."""
+    bps, coff, clen, invp, nc, N = _prep_genome(gdb, lens, device)
+    Tf = gix_arrays(bps, coff, clen, invp, nc)
+    Et = min(_pad_bucket(int(Tf[7])), 2 * N)
+    return tuple(x[:Et] for x in Tf[:7]) + (Tf[7], Tf[8][:Et])
 
 
 def _seedsort(pl, ac, ap, bcn, bp, bo, ns, Cpad):
@@ -1206,8 +1211,8 @@ def device_tubes(gdb1, gdb2, alens_by_rank, freq: int = 10,
                  chain_break: int = 2000, chain_min: int = 170,
                  device=None, symmetric: bool = False):
     """TubeBatch of a genome pair from the device pipeline on ``device``
-    (default: the card): (tubes, nseeds, plsum), or None with DECLINE set
-    when the input exceeds a cap or field width checked before any upload.
+    (default: the card): (tubes, nseeds, plsum); ``Declined`` before any
+    upload where the input exceeds a cap (``decline_reason``).
     ``symmetric`` adds the -S flip pass (``_sym_seeds_sum``); genome 1 then
     takes its full two-orientation table, since the flip pass's members
     need its reverse-complement entries.  The seed slots are the
@@ -1216,35 +1221,21 @@ def device_tubes(gdb1, gdb2, alens_by_rank, freq: int = 10,
     dev = torch.device("cuda" if device is None else device)
     lens1 = gdb1.contig_lengths()
     lens2 = gdb2.contig_lengths()
-    tot = int(lens1.sum()) + int(lens2.sum())
-    if tot == 0 or int(lens1.sum()) > _MAX_DEV_BASES \
-            or int(lens2.sum()) > _MAX_DEV_BASES:
-        return _decline("genome exceeds single-shot device bases")
-    if len(lens1) >= MAX_CONT or len(lens2) >= MAX_CONT:
-        return _decline(f">= {MAX_CONT} contigs")
+    if (reason := decline_reason((lens1, lens2), freq, single_shot=True)):
+        raise Declined(reason)
     amax, bmax = int(lens1.max()), int(lens2.max())
-    if amax + 2 * bmax >= (1 << 30) or max(amax, bmax) >= MAX_POST:
-        return _decline("contig length exceeds device field width")
-    if freq > MAX_FREQ:
-        return _decline(f"-f {freq} > device merge cap {MAX_FREQ}")
-
-    N1 = _pad_bucket(int(lens1.sum()))
-    N2 = _pad_bucket(int(lens2.sum()))
-    cache1 = _dev_cache(gdb1, N1, dev)
-    cache2 = _dev_cache(gdb2, N2, dev)
 
     with prof.span("devpipe.gix1", dev):
-        T1 = (_full_table(cache1, gdb1, lens1, N1, dev) if symmetric
-              else cache1.get(("drv", N1)))
-        if T1 is None:
+        if symmetric:
+            T1 = _full_table(gdb1, lens1, dev)
+        else:
             # unsorted forward candidates -> count -> tight sorted driver
-            # table (one half-size sort; cached per GDB)
-            bps, coff, clen, invp, nc, _ = _prep_genome(gdb1, lens1, dev)
+            # table (one half-size sort)
+            bps, coff, clen, invp, nc, N1 = _prep_genome(gdb1, lens1, dev)
             C1 = driver_candidates(bps, coff, clen, invp, nc)
             T1 = driver_table(C1, min(_pad_bucket(int(C1[7])), N1))
-            cache1[("drv", N1)] = T1
     with prof.span("devpipe.gix2", dev):
-        T2 = _full_table(cache2, gdb2, lens2, N2, dev)
+        T2 = _full_table(gdb2, lens2, dev)
     with prof.span("devpipe.merge", dev):
         mout = (_sym_seeds_sum(T1, T2, freq=freq) if symmetric
                 else _merge_seeds_sum(T1, T2, freq=freq))
@@ -1260,41 +1251,37 @@ def _tubes_from_seeds(mout, chain_break, chain_min, amax, bmax,
     with prof.span("devpipe.chain", device):
         res, ns, plsum = _run_chain(mout, chain_break, chain_min, amax, bmax,
                                     alens_by_rank, device)
-        ga, gb, gc, dgmin, dgmax, alow, ahgh, pair, cov = (
-            _numpy(x) for x in res[:9])
-    tubes = TubeBatch(
+        cols = [_numpy(x) for x in res[:9]]
+    return tube_batch(*cols), int(ns), int(plsum)
+
+
+def tube_batch(ga, gb, gc, dgmin, dgmax, alow, ahgh, pair, cov):
+    """The chain sweep's nine tube columns as a host TubeBatch."""
+    return TubeBatch(
         acont=ga.astype(np.int32), bcont=gb.astype(np.int32),
         comp=gc.astype(bool), dgmin=dgmin.astype(np.int32),
         dgmax=dgmax.astype(np.int32), alow=alow.astype(np.int64),
         ahgh=ahgh.astype(np.int64), pairing=pair.astype(np.int64),
         cov=cov.astype(np.int64))
-    return tubes, int(ns), int(plsum)
 
 
 def device_tubes_self(gdb1, alens_by_rank, freq: int = 10,
                       chain_break: int = 2000, chain_min: int = 170,
                       device=None):
     """Self-comparison TubeBatch of one genome from the device pipeline on
-    ``device`` (default: the card): its GIX table (gix_arrays, cached per
-    GDB), self_seeds and the chain sweep.  (tubes, nseeds, plsum), or None
-    with DECLINE set past a cap checked before any upload.  The seed slots
+    ``device`` (default: the card): its GIX table (gix_arrays), self_seeds
+    and the chain sweep.  (tubes, nseeds, plsum); ``Declined`` before any
+    upload past a cap (``decline_reason``).  The seed slots
     are the expansion's own (self_seeds), where the JAX package caps them
     at 2 * E1."""
     dev = torch.device("cuda" if device is None else device)
     lens1 = gdb1.contig_lengths()
-    if int(lens1.sum()) == 0 or int(lens1.sum()) > _MAX_DEV_BASES:
-        return _decline("genome exceeds single-shot device bases")
-    if len(lens1) >= MAX_CONT:
-        return _decline(f">= {MAX_CONT} contigs")
-    if freq > MAX_FREQ:
-        return _decline(f"-f {freq} > device merge cap {MAX_FREQ}")
+    if (reason := decline_reason((lens1, lens1), freq, single_shot=True)):
+        raise Declined(reason)
     amax = int(lens1.max())
-    if 3 * amax >= (1 << 30) or amax >= MAX_POST:
-        return _decline("contig length exceeds device field width")
 
-    N1 = _pad_bucket(int(lens1.sum()))
     with prof.span("devpipe.gix1", dev):
-        T1 = _full_table(_dev_cache(gdb1, N1, dev), gdb1, lens1, N1, dev)
+        T1 = _full_table(gdb1, lens1, dev)
     with prof.span("devpipe.merge", dev):
         mout = _self_seeds_sum(T1, freq=freq)
     T1 = None
@@ -1330,21 +1317,17 @@ def device_tubes_tables(t1, t2, alens_by_rank, amax: int, bmax: int,
     (default: the card): a pair, or a self comparison when ``t2 is t1``;
     ``symmetric`` adds the -S flip pass to a pair.  The route of mask
     bytes, which the lazy routes do not build, and of a self comparison
-    with a given table.  (tubes, nseeds, plsum), or None with DECLINE set
-    past a cap checked before any upload.  The seed
+    with a given table.  (tubes, nseeds, plsum); ``Declined`` before any
+    upload past a cap (``decline_reason``).  The seed
     slots are each expansion's own, from its total before the masked or
     flipped seeds are dropped, where the JAX package caps them at twice
     the uploaded table's rows (genome 2's for the flip pass)."""
     dev = torch.device("cuda" if device is None else device)
     selfish = t2 is t1
-    if freq > MAX_FREQ:
-        return _decline(f"-f {freq} > device merge cap {MAX_FREQ}")
-    if t1.n >= (1 << 26) or (not selfish and t2.n >= (1 << 26)):
-        return _decline("GIX table exceeds 2^26 entries")
-    if len(t1.perm) >= MAX_CONT or len(t2.perm) >= MAX_CONT:
-        return _decline(f">= {MAX_CONT} contigs")
-    if amax + 2 * bmax >= (1 << 30) or max(amax, bmax) >= MAX_POST:
-        return _decline("contig length exceeds device field width")
+    if (reason := decline_reason(
+            freq=freq, rows=(t1.n,) if selfish else (t1.n, t2.n),
+            ncontig=(len(t1.perm), len(t2.perm)), widths=(amax, bmax))):
+        raise Declined(reason)
 
     mk = dict(soft_mask=soft_mask, has_masks=bool(
         t1.maskb.any() or t2.maskb.any() or soft_mask))
@@ -1524,23 +1507,17 @@ def device_tubes_paneled(gdb1, gdb2, alens_by_rank, freq: int = 10,
     ``over`` always 0).  Inside each panel's span ``devpipe.panel``, span
     ``devpipe.panel_scan`` holds the gathers and sorts of the panel's
     tables and ``devpipe.panel_merge`` the merge and the append.
-    (tubes, nseeds, plsum), or None with DECLINE set past a cap checked
-    before any upload."""
+    (tubes, nseeds, plsum); ``Declined`` before any upload past a cap
+    (``decline_reason``)."""
     dev = torch.device("cuda" if device is None else device)
     selfish = gdb2 is None or gdb2 is gdb1
     if selfish:
         gdb2 = gdb1
     lens1 = gdb1.contig_lengths()
     lens2 = lens1 if selfish else gdb2.contig_lengths()
-    if len(lens1) == 0 or len(lens2) == 0:
-        return _decline("empty genome")
-    if len(lens1) >= MAX_CONT or len(lens2) >= MAX_CONT:
-        return _decline(f">= {MAX_CONT} contigs")
+    if (reason := decline_reason((lens1, lens2), freq)):
+        raise Declined(reason)
     amax, bmax = int(lens1.max()), int(lens2.max())
-    if amax + 2 * bmax >= (1 << 30) or max(amax, bmax) >= MAX_POST:
-        return _decline("contig length exceeds device field width")
-    if freq > MAX_FREQ:
-        return _decline(f"-f {freq} > device merge cap {MAX_FREQ}")
     tot1, tot2 = int(lens1.sum()), int(lens2.sum())
 
     with prof.span("devpipe.prep", dev):
@@ -1606,22 +1583,15 @@ def build_gix_device(gdb, device=None, masks=None):
     count under ``gix.host_tables``).
 
     A genome past a cap of the JAX package's checked before any upload
-    (total bases, contig count, contig length) is built on the host by
-    io.gix.build_gix, with its masks, and a line on stderr says so.  The
-    table keeps every entry the device counts (the JAX package builds on
-    the host past max(4096, N))."""
+    (``decline_reason``: total bases, contig count, contig length) is
+    built on the host by io.gix.build_gix, with its masks, and a line on
+    stderr says so.  The table keeps every entry the device counts (the
+    JAX package builds on the host past max(4096, N))."""
     dev = torch.device("cuda" if device is None else device)
     masks = masks or None
     lens = gdb.contig_lengths()
-    reason = None
-    if len(lens) == 0:
-        reason = "no contigs"
-    elif int(lens.sum()) > _MAX_DEV_BASES:
-        reason = "genome exceeds single-shot device bases"
-    elif len(lens) >= MAX_CONT:
-        reason = f">= {MAX_CONT} contigs"
-    elif int(lens.max()) >= MAX_POST:
-        reason = "contig length exceeds device field width"
+    reason = (decline_reason((lens,), single_shot=True) if len(lens)
+              else "no contigs")
     if reason is not None:
         sys.stderr.write(f"fastga_tpu: device GIX build declined "
                          f"({reason}); building the index on the host\n")
@@ -1638,15 +1608,13 @@ def build_gix_device(gdb, device=None, masks=None):
             kmer_bytes(w0, w1, w2), post, cont, comp.to(torch.bool),
             lcp.to(torch.uint8), prefix_counts(w0)))
         maskb = np.zeros(n, np.uint8) if cov is None else _numpy(T[9][:n])
-        nfake = max(0, 8 - len(lens))
-        lens_eff = np.concatenate([lens, np.full(nfake, KMER, np.int64)])
+        lens_eff, perm, _ = gixm.contig_order(lens)
         table = gixm.GixTable(
             kmer=KMER, kbytes=kbytes, post=post, cont=cont, comp=comp,
-            lcp=lcp, maskb=maskb, prefix_index=prefix_index,
-            perm=_length_perm(lens_eff)[0],
+            lcp=lcp, maskb=maskb, prefix_index=prefix_index, perm=perm,
             post_bytes=gixm._bytes_for(int(lens_eff.max())),
             cont_bytes=gixm._bytes_for(2 * len(lens_eff)),
-            seqtot=gdb.seqtot + nfake * KMER)
+            seqtot=gdb.seqtot + (len(lens_eff) - len(lens)) * KMER)
     if masks is not None:
         prof.count("gix.entries", n)
         prof.count("gix.card_tables")

@@ -25,8 +25,8 @@ once a genome is uploaded the route finishes on the devices: the JAX
 package's fixed slots and their overflow count (which returns None and
 seeds on the host) have no counterpart, nor have its per-shard seed,
 alive-row and tube caps.  The declines are the JAX route's, before any
-upload, with ``device_pipeline._decline``'s reasons.  An error after
-upload reaches the caller.
+upload: ``device_pipeline.Declined`` with ``decline_reason``'s reason.
+An error after upload reaches the caller.
 
 ``sharded_tubes`` returns exactly what ops/device_pipeline.device_tubes
 (device_tubes_self for one genome) returns; tests/test_torch_sharded.py
@@ -41,8 +41,6 @@ import torch
 import torch.distributed as tdist
 
 from ..ops import device_pipeline as dp
-from ..ops.chain import TubeBatch
-from ..ops.device_pipeline import I64MAX, MAX_CONT, MAX_FREQ, MAX_POST
 from ..ops.merge_kernels import lexsort2
 from ..utils import prof
 from .distributed import gather_host
@@ -139,7 +137,7 @@ def _fragment_table(ka, kb):
     dev = ka.device
     R = ka.shape[0]
     E = dp._pad_bucket(R)
-    pad = torch.full((E - R,), I64MAX, dtype=torch.int64, device=dev)
+    pad = torch.full((E - R,), dp.I64MAX, dtype=torch.int64, device=dev)
     ka, kb = torch.cat([ka, pad]), torch.cat([kb, pad])
     o = lexsort2(ka, kb)
     w0, w1, w2, cs, ps, os_ = dp.unpack_entry_keys(ka[o], kb[o])
@@ -178,9 +176,9 @@ def sharded_tubes(gdb1, gdb2, alens_by_rank, mesh, freq: int = 10,
                   device=None):
     """(TubeBatch, nseeds, plsum) of a genome pair from the sharded
     pipeline, the same on every rank of ``mesh``, equal to device_tubes /
-    the host pipeline; or None with ``device_pipeline.DECLINE`` set when a
-    check before any upload declines (contig count, ``freq``, field
-    widths).  Pass ``gdb2=None`` or ``gdb1`` twice for a self comparison
+    the host pipeline; ``device_pipeline.Declined`` when a check before any
+    upload or collective declines (contig count, field widths, ``freq``).
+    Pass ``gdb2=None`` or ``gdb1`` twice for a self comparison
     (``self_seeds`` on each rank's fragment).  ``device`` None is the
     mesh's."""
     selfish = gdb2 is None or gdb2 is gdb1
@@ -190,13 +188,9 @@ def sharded_tubes(gdb1, gdb2, alens_by_rank, mesh, freq: int = 10,
     dev = mesh.device if device is None else torch.device(device)
     lens1 = gdb1.contig_lengths()
     lens2 = lens1 if selfish else gdb2.contig_lengths()
+    if (reason := dp.decline_reason((lens1, lens2), freq)):
+        raise dp.Declined(reason)
     amax, bmax = int(lens1.max()), int(lens2.max())
-    if len(lens1) >= MAX_CONT or len(lens2) >= MAX_CONT:
-        return dp._decline(f">= {MAX_CONT} contigs")
-    if freq > MAX_FREQ:
-        return dp._decline(f"-f {freq} > device merge cap {MAX_FREQ}")
-    if amax + 2 * bmax >= (1 << 30) or max(amax, bmax) >= MAX_POST:
-        return dp._decline("contig length exceeds device field width")
 
     cpu = torch.device("cpu")
     prep1 = dp._prep_genome(gdb1, lens1, cpu)
@@ -241,11 +235,5 @@ def sharded_tubes(gdb1, gdb2, alens_by_rank, mesh, freq: int = 10,
             [dp._numpy(x).astype(np.int64) for x in res[:9]], 1))
     with prof.span("devpipe.exchange", dev):
         cat = gather_host(cols.to(mesh.comm_device))
-    tubes = TubeBatch(
-        acont=cat[:, 0].astype(np.int32), bcont=cat[:, 1].astype(np.int32),
-        comp=cat[:, 2].astype(bool), dgmin=cat[:, 3].astype(np.int32),
-        dgmax=cat[:, 4].astype(np.int32), alow=cat[:, 5].astype(np.int64),
-        ahgh=cat[:, 6].astype(np.int64), pairing=cat[:, 7].astype(np.int64),
-        cov=cat[:, 8].astype(np.int64))
     nseeds, plsum = (int(x) for x in cnt.cpu())
-    return tubes, nseeds, plsum
+    return dp.tube_batch(*cat.T), nseeds, plsum

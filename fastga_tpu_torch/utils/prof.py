@@ -1,13 +1,14 @@
 """Host spans and counters of the port (port of fastga_tpu/utils/prof.py).
 
 Usage:  with prof.span("wave.pair_dispatch"): ...   /  prof.count(name, n)
-Off by default: set ``prof.ENABLED = True``.  ``report()`` returns
-{name: (seconds, calls)} summed over spans and counters, ``counters()``
-the counters alone (a counter may share its name with a span, as
-``gix.entries`` does).  Each closed span is also kept as (id, parent_id,
-job_id, name, t0, t1) (``events()``), t0 and t1 on ``time.perf_counter``'s
-clock: the parent is the innermost span open on the same thread, the job
-the one ``job()`` opened.  ``seconds(*names)`` sums that record.  Inside a
+Off by default: set ``prof.ENABLED = True``.  Each closed span is kept as
+(id, parent_id, job_id, name, t0, t1) (``events()``), t0 and t1 on
+``time.perf_counter``'s clock: the parent is the innermost span open on
+the same thread, the job the one ``job()`` opened.  ``seconds(*names)``
+sums that record, ``counters()`` has the totals of ``count``, and
+``report()`` reads both: {name: (seconds, calls)} of each span, (0.0,
+total) of each counter whose name no span has (``gix.entries`` has one).
+Inside a
 ``trace(dir)`` window each span also opens
 ``torch.profiler.record_function(name)``, so the Chrome trace it writes
 shows the host spans beside the kernels on the profiler's one clock.
@@ -26,9 +27,7 @@ from collections import defaultdict
 from contextlib import contextmanager, nullcontext
 
 ENABLED = False
-_acc = defaultdict(float)
-_cnt = defaultdict(int)
-_num = defaultdict(int)      # the counters alone
+_num = defaultdict(int)      # counter totals
 _events = []                 # (id, parent_id, job_id, name, t0, t1)
 _ids = itertools.count(1)
 _job_ids = itertools.count(1)
@@ -60,8 +59,6 @@ def span(name, device=None):
     finally:
         t1 = time.perf_counter()
         stack.pop()
-        _acc[name] += t1 - t0
-        _cnt[name] += 1
         _events.append((sid, parent, _job, name, t0, t1))
 
 
@@ -93,7 +90,6 @@ def job():
 
 def count(name, n=1):
     if ENABLED:
-        _cnt[name] += n
         _num[name] += n
 
 
@@ -103,8 +99,14 @@ def counters():
 
 
 def report():
-    return {k: (round(_acc[k], 3), _cnt[k])
-            for k in sorted(set(_acc) | set(_cnt))}
+    """{name: (seconds, calls)} of the span record, and (0.0, total) of
+    each counter whose name no span has."""
+    spans = defaultdict(list)
+    for e in _events:
+        spans[e[3]].append(e[5] - e[4])
+    rep = {k: (0.0, n) for k, n in _num.items()}
+    rep.update((k, (round(sum(v), 3), len(v))) for k, v in spans.items())
+    return dict(sorted(rep.items()))
 
 
 def events():
@@ -131,8 +133,6 @@ def seconds(*names):
 
 
 def reset():
-    _acc.clear()
-    _cnt.clear()
     _num.clear()
     _events.clear()
 

@@ -371,7 +371,7 @@ def test_freq_past_device_cap_with_masks_declines(g, monkeypatch, capsys,
         params=tal.FastGAParams(freq=11, soft_mask=True))
     assert calls == ["device_tubes_tables"]
     assert stats["seed_pipeline"] == "host"
-    assert stats["seed_decline"] == tp.DECLINE == dp.DECLINE \
+    assert stats["seed_decline"] == dp.DECLINE \
         == "-f 11 > device merge cap 10"
     assert ("device seed pipeline declined (-f 11 > device merge cap 10)"
             in capsys.readouterr().err)

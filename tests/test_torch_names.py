@@ -47,6 +47,8 @@ NAME_EXCEPTIONS = {
     "ops/device_pipeline.py": {
         "CHAIN_PANEL_MAX": "the host chain sweep's panel cap; the port "
                            "chains past any cap on the card",
+        "DECLINE": "a decline is raised (Declined, with its reason), not "
+                   "stored in the module",
     },
     "models/aligner.py": {
         "prewarm": "XLA compile warm-up",

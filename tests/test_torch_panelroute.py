@@ -76,8 +76,8 @@ def test_fastga_paf_through_panels_matches_single_shot_and_jax(
         up, tmp_path, monkeypatch, capsys, on):
     """``fastga A B`` (PAF on stdout) on the port's CPU engine, once on the
     single-shot route and once with ``_MAX_DEV_BASES`` below either
-    genome: the same bytes, which are the JAX command line's (``-Eref``),
-    with no decline printed."""
+    genome (the paneled route alone): the same bytes, which are the JAX
+    command line's (``-Eref``), with no decline printed."""
     gen = up[0]
     A, B = str(tmp_path / "A.fa"), str(tmp_path / "B.fa")
     synth.write_fasta(A, gen["A"], "a")
@@ -94,7 +94,7 @@ def test_fastga_paf_through_panels_matches_single_shot_and_jax(
     assert routes == ["device_tubes"]
     monkeypatch.setattr(tp, "_MAX_DEV_BASES", 3 * 3000 // 2)
     paneled = _run(tcli.main, [A, B], device="cpu")
-    assert routes[1:] == ["device_tubes", "device_tubes_paneled"]
+    assert routes[1:] == ["device_tubes_paneled"]
     assert _calls("devpipe.panel") == 2
     assert "declined" not in capsys.readouterr().err
     # every contig pair aligned, the inverted middle third on its own

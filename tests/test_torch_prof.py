@@ -116,6 +116,21 @@ def test_seconds_counts_nested_same_name_spans_once(on, clock):
     assert prof.report()["a"][1] == 3
 
 
+def test_report_keeps_a_span_apart_from_its_counter(on, clock):
+    """A name that is both a span and a counter (as ``gix.entries`` is):
+    report() gives the span's seconds and calls, counters() the counter's
+    total, and neither is added to the other; a counter alone reports its
+    total with no seconds."""
+    with prof.span("x"):            # 0 .. 1
+        prof.count("x", 5)
+    with prof.span("x"):            # 2 .. 3
+        prof.count("x", 7)
+    prof.count("y", 4)
+    assert prof.report() == {"x": (2, 2), "y": (0.0, 4)}
+    assert prof.counters() == {"x": 12, "y": 4}
+    assert prof.seconds("x") == 2
+
+
 def test_span_keeps_its_parameters():
     params = inspect.signature(prof.span).parameters
     assert list(params) == ["name", "device"]

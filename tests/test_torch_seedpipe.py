@@ -403,12 +403,13 @@ def test_device_tubes_chain_branches(genomes, monkeypatch, capsys, branch):
 
 
 def test_device_tubes_decline_matches_jax(genomes):
-    dp.DECLINE = tp.DECLINE = None
+    dp.DECLINE = None
     assert dp.device_tubes(genomes.jg1, genomes.jg2, genomes.alens,
                            freq=11) is None
-    assert tp.device_tubes(genomes.tg1, genomes.tg2, genomes.alens,
-                           freq=11, device=CPU) is None
-    assert tp.DECLINE == dp.DECLINE == "-f 11 > device merge cap 10"
+    with pytest.raises(tp.Declined) as e:
+        tp.device_tubes(genomes.tg1, genomes.tg2, genomes.alens, freq=11,
+                        device=CPU)
+    assert e.value.reason == dp.DECLINE == "-f 11 > device merge cap 10"
 
 
 def _key(o):

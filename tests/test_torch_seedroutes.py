@@ -170,9 +170,7 @@ def test_panel_tables_take_their_entries_bucket(g, monkeypatch, capsys,
     _same(g.jpself if selfish else g.jppair, got)
     first = who != "genome 2"
     gd = g.tg1 if first else g.tg2
-    lens = gd.contig_lengths()
-    N = tp._pad_bucket(int(lens.sum()))
-    full = int(tp._full_table({}, gd, lens, N, CPU)[7])
+    full = int(tp._full_table(gd, gd.contig_lengths(), CPU)[7])
     assert len(counts) == (1 if selfish else 2)
     cnt = counts[0 if first else 1]
     assert sum(cnt) == full
@@ -186,8 +184,9 @@ def test_panel_tables_take_their_entries_bucket(g, monkeypatch, capsys,
 
 def test_panel_entries_past_their_buffer_stay_on_card(g, monkeypatch,
                                                       capsys, no_waves):
-    """Through align_genomes (the single-shot route declined on its bases
-    first), self panels from a plane built in blocks of 1,000 positions:
+    """Through align_genomes (the paneled route alone, the genome past a
+    lowered single-shot cap), self panels from a plane built in blocks of
+    1,000 positions:
     no panel's entries pass its table, which takes their bucket, and the
     run seeds on the card with the JAX package's seeds, tubes and
     seed-length average."""
@@ -203,7 +202,7 @@ def test_panel_entries_past_their_buffer_stay_on_card(g, monkeypatch,
     calls = _routes(monkeypatch)
     monkeypatch.setattr(tp, "_MAX_DEV_BASES", 1000)
     _, stats = tal.align_genomes(g.tg1, g.tg1, device="cpu")
-    assert calls == ["device_tubes_self", "device_tubes_paneled"]
+    assert calls == ["device_tubes_paneled"]
     assert sizes and all(r == tp._pad_bucket(n) for n, r in sizes)
     _device_stats(stats, g.jself, capsys)
 
@@ -223,7 +222,7 @@ def test_self_seeds_rerun_at_their_bucket(g):
     """Self seeds past the slots asked for take their own bucket (the 24
     Mbp repeat-rich self run needs 2.82 seeds an entry, past the JAX
     package's 2 * E1), with every seed of a run at ample slots."""
-    T = tp._full_table({}, g.tg1, g.tg1.contig_lengths(), 1 << 15, CPU)
+    T = tp._full_table(g.tg1, g.tg1.contig_lengths(), CPU)
     want = convert.outputs_to_numpy(tp._self_seeds_sum(T, 1 << 16, 10))
     got = convert.outputs_to_numpy(tp._self_seeds_sum(T, 4096, 10))
     ns, nscap = want[6], len(got[0])
@@ -313,7 +312,7 @@ def test_entries_past_the_jax_cap_stay_on_card(g, monkeypatch, capsys,
         lens = gd.contig_lengths()
         N = tp._pad_bucket(int(lens.sum()))
         assert N == int(lens.sum()) and int(
-            tp._full_table({}, gd, lens, N, CPU)[7]) > N
+            tp._full_table(gd, lens, CPU)[7]) > N
     calls = _routes(monkeypatch)
     scans = []
     table = tp._plane_table
@@ -405,9 +404,9 @@ def test_self_with_tables_seeds_on_host(g, monkeypatch, no_waves):
 
 @pytest.mark.parametrize("what", ["pair", "self"])
 def test_past_single_shot_bases_takes_panels(g, monkeypatch, what):
-    """With _MAX_DEV_BASES below the genome's size the single-shot route
-    declines and the paneled route runs on the device, with the default
-    route's records (on the shortest contig of each genome)."""
+    """With _MAX_DEV_BASES below the genome's size align_genomes calls the
+    paneled route alone, on the device, with the default route's records
+    (on the shortest contig of each genome)."""
     i = int(np.argmin([len(a) for a in g.A]))
     g1 = convert.gdb_from_arrays([g.A[i]], ["a"])
     g2 = g1 if what == "self" else convert.gdb_from_arrays([g.B[i]], ["b"])
@@ -415,8 +414,7 @@ def test_past_single_shot_bases_takes_panels(g, monkeypatch, what):
     calls = _routes(monkeypatch)
     monkeypatch.setattr(tp, "_MAX_DEV_BASES", len(g.A[i]) // 2)
     got, stats = tal.align_genomes(g1, g2, device="cpu", cfg=CFG)
-    assert calls == ["device_tubes" + ("_self" if what == "self" else ""),
-                     "device_tubes_paneled"]
+    assert calls == ["device_tubes_paneled"]
     assert stats["seed_pipeline"] == wstats["seed_pipeline"] == "device"
     assert "seed_decline" not in stats
     assert (stats["nseeds"], stats["nhits"]) == (wstats["nseeds"],
@@ -428,18 +426,22 @@ def test_past_single_shot_bases_takes_panels(g, monkeypatch, what):
 @pytest.mark.parametrize("what", ["pair", "self"])
 def test_freq_past_device_cap_declines_to_host(g, monkeypatch, capsys,
                                                no_waves, what):
-    """-f 11: both device routes decline with the JAX package's reason,
-    and the host seeds the run with a line on stderr."""
+    """-f 11: the single-shot route, the one called, declines with the
+    JAX package's reason, and the host seeds the run with a line on
+    stderr."""
     dp.DECLINE = None
-    assert dp.device_tubes_paneled(g.jg1, None if what == "self" else g.jg2,
-                                   g.alens, freq=11) is None
+    if what == "self":
+        assert dp.device_tubes_self(g.jg1, g.alens, freq=11) is None
+    else:
+        assert dp.device_tubes(g.jg1, g.jg2, g.alens, freq=11) is None
     calls = _routes(monkeypatch)
     g2 = g.tg1 if what == "self" else g.tg2
     _, stats = tal.align_genomes(g.tg1, g2, device="cpu",
                                  params=tal.FastGAParams(freq=11))
-    assert calls[1:] == ["device_tubes_paneled"]
+    assert calls == ["device_tubes_self" if what == "self"
+                     else "device_tubes"]
     assert stats["seed_pipeline"] == "host"
-    assert stats["seed_decline"] == tp.DECLINE == dp.DECLINE \
+    assert stats["seed_decline"] == dp.DECLINE \
         == "-f 11 > device merge cap 10"
     assert ("device seed pipeline declined (-f 11 > device merge cap 10)"
             in capsys.readouterr().err)
@@ -465,3 +467,97 @@ def test_device_error_propagates(g, monkeypatch, no_waves, what):
     with pytest.raises(RuntimeError, match="out of memory on the device"):
         tal.align_genomes(g.tg1, g2, device="cpu")
     assert calls == [name]
+
+
+# -- declines: one check of the caps, a reason raised, the host seeding ------
+
+DECLINE_CASES = [(route, cap) for route, caps in (
+    ("pair", ("contigs", "width", "freq", "-S bases")),
+    ("self", ("contigs", "width", "freq")),
+    ("tables", ("rows", "contigs", "width", "freq")),
+    ("paneled", ("contigs", "width", "freq")),
+    ("sharded", ("contigs", "width", "freq"))) for cap in caps]
+
+
+@pytest.mark.parametrize("route,cap", DECLINE_CASES)
+def test_declines_match_jax_before_upload(route, cap, monkeypatch, capsys,
+                                          no_waves):
+    """align_genomes on each route past each single cap that applies to
+    it: the route called declines before anything goes up (the genome
+    preparation and the table upload fail here if reached), and the host
+    seeds the run, with the JAX package's reason for the same input in
+    ``stats["seed_decline"]`` and on stderr.  Genome 1 of 4,096 contigs
+    of 60 bases, else three of 3 kb;
+    the field width past a lowered MAX_POST (both packages'); the table
+    rows past a lowered MAX_ROWS (the JAX check is fixed at 2^26: a table
+    of 2^26 rows stands in there); the paneled route past a lowered
+    _MAX_DEV_BASES; the sharded route on a 2-rank gloo mesh without a
+    process group, so any collective would fail."""
+    from fastga_tpu_torch.parallel import sharded as tsharded
+    rng = np.random.default_rng(19)
+    A = [rng.integers(0, 4, 3000).astype(np.uint8) for _ in range(3)]
+    B = [_mutate(a, 0.04, rng) for a in A]
+    if cap == "contigs":
+        A = [rng.integers(0, 4, 60).astype(np.uint8) for _ in range(4096)]
+    jg1, jg2 = _gdb(A), _gdb(B)
+    g1 = convert.gdb_from_arrays(A, [f"a{i}" for i in range(len(A))])
+    g2 = g1 if route == "self" else convert.gdb_from_arrays(
+        B, [f"b{i}" for i in range(len(B))])
+    alens = _alens(jg1.contig_lengths())
+    freq = 11 if cap == "freq" else 10
+    if cap == "width":
+        monkeypatch.setattr(tp, "MAX_POST", 3000)
+        monkeypatch.setattr(dp, "MAX_POST", 3000)
+    if cap == "-S bases" or route == "paneled":
+        monkeypatch.setattr(tp, "_MAX_DEV_BASES", 8999)
+        monkeypatch.setattr(dp, "_MAX_DEV_BASES", 8999)
+    kw = dict(params=tal.FastGAParams(freq=freq, soft_mask=route == "tables"),
+              symmetric=cap == "-S bases")
+    dp.DECLINE = None
+    if route == "tables":
+        t1, t2 = tgix.build_gix(g1), tgix.build_gix(g2)
+        jt1, jt2 = jgix.build_gix(jg1), jgix.build_gix(jg2)
+        if cap == "rows":
+            monkeypatch.setattr(tp, "MAX_ROWS", min(t1.n, t2.n))
+            jt1 = SimpleNamespace(n=1 << 26, perm=jt1.perm)
+        amax, bmax = (int(x.contig_lengths().max()) for x in (jg1, jg2))
+        assert dp.device_tubes_tables(jt1, jt2, alens, amax, bmax, freq=freq,
+                                      soft_mask=True) is None
+        kw.update(t1=t1, t2=t2)
+    elif route == "self":
+        assert dp.device_tubes_self(jg1, alens, freq=freq) is None
+    elif route == "paneled":
+        assert dp.device_tubes_paneled(jg1, jg2, alens, freq=freq) is None
+    else:
+        # the JAX sharded route declines with no reason: its device_tubes'
+        assert dp.device_tubes(jg1, jg2, alens, freq=freq,
+                               symmetric=cap == "-S bases") is None
+    if route == "sharded":
+        kw["mesh"] = tsharded.Mesh(2, 0, CPU, "gloo")
+
+    def upload(*a, **k):
+        raise AssertionError("a declined route reached the device")
+    for fn in ("_prep_genome", "_upload_table"):
+        monkeypatch.setattr(tp, fn, upload)
+    calls = _routes(monkeypatch)
+    _, stats = tal.align_genomes(g1, g2, device="cpu", **kw)
+    assert calls == {"pair": ["device_tubes"], "self": ["device_tubes_self"],
+                     "tables": ["device_tubes_tables"],
+                     "paneled": ["device_tubes_paneled"],
+                     "sharded": []}[route]
+    assert stats["seed_pipeline"] == "host" and "sharded" not in stats
+    assert stats["seed_decline"] == dp.DECLINE is not None
+    assert (f"fastga_tpu: device seed pipeline declined ({dp.DECLINE}); "
+            f"using host seed pipeline") in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("case", ["pair", "-S", "self"])
+def test_routes_leave_no_attribute_on_the_gdbs(g, no_waves, case):
+    """The single-shot, -S and self routes build their tables anew each
+    run and keep nothing on the GDB objects."""
+    g2 = g.tg1 if case == "self" else g.tg2
+    before = [set(vars(x)) for x in (g.tg1, g2)]
+    _, stats = tal.align_genomes(g.tg1, g2, device="cpu",
+                                 symmetric=case == "-S")
+    assert stats["seed_pipeline"] == "device"
+    assert [set(vars(x)) for x in (g.tg1, g2)] == before

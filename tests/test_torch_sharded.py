@@ -348,9 +348,9 @@ def test_past_the_jax_caps_stays_on_device(ranks, inputs):
 @pytest.mark.parametrize("what", ["contigs", "freq"])
 def test_declines_before_upload_with_jax_reasons(what, capsys):
     """4,096 contigs, or -f 11: the JAX sharded route returns None, the
-    port's returns None with the JAX package's reason (its device_tubes'),
-    before any collective (the mesh here has no group), and align_genomes
-    seeds on the host with the reason on stderr."""
+    port's raises Declined with the JAX package's reason (its
+    device_tubes'), before any collective (the mesh here has no group),
+    and align_genomes seeds on the host with the reason on stderr."""
     rng = np.random.default_rng(5)
     n = 4096 if what == "contigs" else 3
     A = [rng.integers(0, 4, 60 if what == "contigs" else 3000)
@@ -365,9 +365,9 @@ def test_declines_before_upload_with_jax_reasons(what, capsys):
     t1 = convert.gdb_from_arrays(A, [f"a{i}" for i in range(n)])
     t2 = convert.gdb_from_arrays(A, [f"b{i}" for i in range(n)])
     mesh = tsharded.Mesh(2, 0, torch.device("cpu"), "gloo")
-    tp.DECLINE = None
-    assert tsharded.sharded_tubes(t1, t2, alens, mesh, freq=freq) is None
-    assert tp.DECLINE == jdp.DECLINE
+    with pytest.raises(tp.Declined) as e:
+        tsharded.sharded_tubes(t1, t2, alens, mesh, freq=freq)
+    assert e.value.reason == jdp.DECLINE
     if what == "freq":
         tal_params = tal.FastGAParams(freq=freq)
         _, stats = tal.align_genomes(t1, t2, params=tal_params,

@@ -1,9 +1,12 @@
-# Copied from fastga_tpu/io/gdb.py; imports point at fastga_tpu_torch.
+# Port of fastga_tpu/io/gdb.py; imports point at fastga_tpu_torch, and
+# create_gdb parses FASTA in one native pass (native/fagdb.c).
 """GDB — genome database: `.1gdb` ONEcode skeleton + hidden `.bps` 2-bit store.
 
 Clean-room equivalent of the reference's GDB.c:
 
-- Create from FASTA(.gz) with N-run contig splitting (Create_GDB GDB.c:442-1050):
+- Create from FASTA(.gz) with N-run contig splitting (Create_GDB GDB.c:442-1050),
+  in one pass of ``native/fagdb.c`` over the file's bytes, or in the numpy
+  body below when that library cannot be built:
   runs of non-acgt characters shorter than ``ncut`` become 'a' bases inside the
   contig, runs >= ``ncut`` split contigs and are recorded as scaffold gaps;
   trailing non-acgt runs of a scaffold are dropped; lower-case runs become
@@ -28,6 +31,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..utils import dna, prof
 from . import onecode
 
@@ -131,14 +135,24 @@ class GDB:
 # -- FASTA -> GDB ------------------------------------------------------------
 
 
-def _read_fasta_scaffolds(path) -> List[Tuple[str, np.ndarray]]:
-    """Parse FASTA(.gz) into (header, raw ASCII byte array) per scaffold."""
+def _read_fasta(path) -> bytes:
+    """The bytes of a FASTA(.gz) file, which must start with a header."""
     p = Path(path)
     opener = gzip.open if p.suffix == ".gz" or _is_gzip(p) else open
     with opener(p, "rb") as f:
         data = f.read()
     if not data.startswith(b">"):
         raise ValueError(f"{path}: first FASTA header missing")
+    return data
+
+
+def _header(data: bytes, beg: int, end: int) -> str:
+    return data[beg:end].strip().decode("utf-8", "replace")
+
+
+def _read_fasta_scaffolds(path) -> List[Tuple[str, np.ndarray]]:
+    """Parse FASTA(.gz) into (header, raw ASCII byte array) per scaffold."""
+    data = _read_fasta(path)
     buf = np.frombuffer(data, dtype=np.uint8)
     nl = np.flatnonzero(buf == ord("\n"))
     # line starts
@@ -155,7 +169,7 @@ def _read_fasta_scaffolds(path) -> List[Tuple[str, np.ndarray]]:
         line_end = data.find(b"\n", s0, e0)
         if line_end < 0:
             line_end = e0
-        header = data[s0 + 1 : line_end].strip().decode("utf-8", "replace")
+        header = _header(data, s0 + 1, line_end)
         seq = buf[line_end + 1 : e0]
         seq = seq[(seq != ord("\n")) & (seq != ord("\r"))]
         scaffolds.append((header, seq))
@@ -189,96 +203,148 @@ def create_gdb(fasta_path, target=None, ncut: int = 0,
     with prof.span("gdb.create"):
         gdb = GDB()
         gdb.srcpath = str(Path(fasta_path).resolve())
-        masks: List[MaskIval] = []
-        counts = np.zeros(4, dtype=np.int64)
-        packed_chunks: List[np.ndarray] = []
-        boff = 0
-        saw_upper = False
-
-        for header, raw in _read_fasta_scaffolds(fasta_path):
-            codes = dna.ASCII_TO_CODE[raw]
-            is_base = codes < 4
-            # drop trailing non-acgt run (the reference drops it from slen
-            # entirely)
-            nb = len(raw)
-            if nb and not is_base[-1]:
-                last = nb - 1
-                # find last base
-                idx = np.flatnonzero(is_base)
-                nb = int(idx[-1]) + 1 if len(idx) else 0
-                raw = raw[:nb]
-                codes = codes[:nb]
-                is_base = is_base[:nb]
-            if nb == 0:
-                raise ValueError(
-                    f"{fasta_path}: scaffold '{header}' has no sequence")
-
-            lower = dna.IS_LOWER[raw]
-            saw_upper = saw_upper or bool((is_base & ~lower).any())
-
-            vals, starts, lens = _runs(is_base)
-            fctg = gdb.ncontig
-            spos = 0
-            # assemble contigs: consecutive base-runs merged across short
-            # N-runs
-            cur_codes: List[np.ndarray] = []
-            cur_lower: List[np.ndarray] = []
-            cur_sbeg = 0
-
-            def flush_contig():
-                nonlocal boff, spos
-                if cur_codes:
-                    cc = np.concatenate(cur_codes)
-                    ll = np.concatenate(cur_lower)
-                else:
-                    cc = np.zeros(0, dtype=np.uint8)
-                    ll = np.zeros(0, dtype=bool)
-                ci = gdb.ncontig
-                gdb.contigs.append(Contig(len(cc), cur_sbeg, boff, gdb.nscaff))
-                if len(cc):
-                    counts[:] += np.bincount(cc, minlength=4)[:4]
-                    pk = dna.compress(cc)
-                    packed_chunks.append(pk)
-                    boff += len(pk)
-                    gdb.maxctg = max(gdb.maxctg, len(cc))
-                    mv, ms, mlen = _runs(ll)
-                    for v, s0, l0 in zip(mv, ms, mlen):
-                        if v:
-                            masks.append(MaskIval(ci, int(s0), int(s0 + l0)))
-
-            i = 0
-            nruns = len(vals)
-            while i < nruns:
-                v, s0, l0 = bool(vals[i]), int(starts[i]), int(lens[i])
-                if v:
-                    cur_codes.append(codes[s0 : s0 + l0])
-                    cur_lower.append(lower[s0 : s0 + l0])
-                else:
-                    if l0 < ncut:
-                        # short N-run kept as 'a' bases, counted as base 0
-                        cur_codes.append(np.zeros(l0, dtype=np.uint8))
-                        cur_lower.append(np.zeros(l0, dtype=bool))
-                    else:
-                        flush_contig()
-                        spos = s0 + l0
-                        cur_sbeg = spos
-                        cur_codes, cur_lower = [], []
-                i += 1
-            flush_contig()
-            gdb.scaffolds.append(Scaffold(nb, fctg, gdb.ncontig, header))
-
-        if not saw_upper:
-            masks = []
-
-        gdb.seqtot = int(counts.sum())
-        if gdb.seqtot > 0:
-            gdb.freq = counts / gdb.seqtot
-        gdb._bps = (np.concatenate(packed_chunks) if packed_chunks
-                    else np.zeros(0, dtype=np.uint8))
-
+        lib = native.get_fagdb()
+        if lib is not None:
+            masks = _parse_native(lib, gdb, fasta_path, ncut)
+        else:
+            masks = _parse_numpy(gdb, fasta_path, ncut)
         if target is not None:
             write_gdb(gdb, target)
         return gdb, masks
+
+
+def _rows(ptr, n: int, width: int) -> np.ndarray:
+    """A copy of ``n`` rows of ``width`` from a C buffer."""
+    if n == 0:
+        return np.zeros((0, width), dtype=np.int64)
+    return np.ctypeslib.as_array(ptr, shape=(n, width)).copy()
+
+
+def _parse_native(lib, gdb: GDB, fasta_path, ncut: int) -> List[MaskIval]:
+    """Fill ``gdb`` from native/fagdb.c's one pass; return the masks."""
+    data = _read_fasta(fasta_path)
+    h = lib.fag_new()
+    if not h:
+        raise MemoryError("fag_new")
+    try:
+        rc = lib.fag_parse(h, data, len(data), ncut)
+        r = h.contents
+        scaf = _rows(r.scaf, r.nscaf, 5)
+        if rc == 1:
+            header = _header(data, int(scaf[-1, 0]), int(scaf[-1, 1]))
+            raise ValueError(
+                f"{fasta_path}: scaffold '{header}' has no sequence")
+        if rc:  # -1, out of memory (2, no first '>', is ruled out above)
+            raise MemoryError(f"fag_parse returned {rc}")
+        ctg = _rows(r.ctg, r.nctg, 4)
+        mask = _rows(r.mask, r.nmask, 3)
+        gdb._bps = (np.ctypeslib.as_array(r.bps, shape=(r.nbps,)).copy()
+                    if r.nbps else np.zeros(0, dtype=np.uint8))
+        counts = np.array(r.counts[:], dtype=np.int64)
+        gdb.maxctg = int(r.maxctg)
+        saw_upper = bool(r.saw_upper)
+    finally:
+        lib.fag_free(h)
+    prof.count("gdb.native_parses")
+    gdb.scaffolds = [Scaffold(slen, fctg, ectg, _header(data, hb, he))
+                     for hb, he, slen, fctg, ectg in scaf.tolist()]
+    gdb.contigs = [Contig(*row) for row in ctg.tolist()]
+    gdb.seqtot = int(counts.sum())
+    if gdb.seqtot > 0:
+        gdb.freq = counts / gdb.seqtot
+    if not saw_upper:
+        return []
+    return [MaskIval(*row) for row in mask.tolist()]
+
+
+def _parse_numpy(gdb: GDB, fasta_path, ncut: int) -> List[MaskIval]:
+    """Fill ``gdb`` by whole-array numpy passes; return the masks."""
+    masks: List[MaskIval] = []
+    counts = np.zeros(4, dtype=np.int64)
+    packed_chunks: List[np.ndarray] = []
+    boff = 0
+    saw_upper = False
+
+    for header, raw in _read_fasta_scaffolds(fasta_path):
+        codes = dna.ASCII_TO_CODE[raw]
+        is_base = codes < 4
+        # drop trailing non-acgt run (the reference drops it from slen
+        # entirely)
+        nb = len(raw)
+        if nb and not is_base[-1]:
+            # find last base
+            idx = np.flatnonzero(is_base)
+            nb = int(idx[-1]) + 1 if len(idx) else 0
+            raw = raw[:nb]
+            codes = codes[:nb]
+            is_base = is_base[:nb]
+        if nb == 0:
+            raise ValueError(
+                f"{fasta_path}: scaffold '{header}' has no sequence")
+
+        lower = dna.IS_LOWER[raw]
+        saw_upper = saw_upper or bool((is_base & ~lower).any())
+
+        vals, starts, lens = _runs(is_base)
+        fctg = gdb.ncontig
+        spos = 0
+        # assemble contigs: consecutive base-runs merged across short
+        # N-runs
+        cur_codes: List[np.ndarray] = []
+        cur_lower: List[np.ndarray] = []
+        cur_sbeg = 0
+
+        def flush_contig():
+            nonlocal boff, spos
+            if cur_codes:
+                cc = np.concatenate(cur_codes)
+                ll = np.concatenate(cur_lower)
+            else:
+                cc = np.zeros(0, dtype=np.uint8)
+                ll = np.zeros(0, dtype=bool)
+            ci = gdb.ncontig
+            gdb.contigs.append(Contig(len(cc), cur_sbeg, boff, gdb.nscaff))
+            if len(cc):
+                counts[:] += np.bincount(cc, minlength=4)[:4]
+                pk = dna.compress(cc)
+                packed_chunks.append(pk)
+                boff += len(pk)
+                gdb.maxctg = max(gdb.maxctg, len(cc))
+                mv, ms, mlen = _runs(ll)
+                for v, s0, l0 in zip(mv, ms, mlen):
+                    if v:
+                        masks.append(MaskIval(ci, int(s0), int(s0 + l0)))
+
+        i = 0
+        nruns = len(vals)
+        while i < nruns:
+            v, s0, l0 = bool(vals[i]), int(starts[i]), int(lens[i])
+            if v:
+                cur_codes.append(codes[s0 : s0 + l0])
+                cur_lower.append(lower[s0 : s0 + l0])
+            else:
+                if l0 < ncut:
+                    # short N-run kept as 'a' bases, counted as base 0
+                    cur_codes.append(np.zeros(l0, dtype=np.uint8))
+                    cur_lower.append(np.zeros(l0, dtype=bool))
+                else:
+                    flush_contig()
+                    spos = s0 + l0
+                    cur_sbeg = spos
+                    cur_codes, cur_lower = [], []
+            i += 1
+        flush_contig()
+        gdb.scaffolds.append(Scaffold(nb, fctg, gdb.ncontig, header))
+
+    if not saw_upper:
+        masks = []
+
+    gdb.seqtot = int(counts.sum())
+    if gdb.seqtot > 0:
+        gdb.freq = counts / gdb.seqtot
+    gdb._bps = (np.concatenate(packed_chunks) if packed_chunks
+                else np.zeros(0, dtype=np.uint8))
+    return masks
 
 
 def write_gdb(gdb: GDB, target, provenance_cmd: str = "") -> Path:

@@ -1097,10 +1097,11 @@ def driver_table(C, ecap: int):
     return unpack_entry_keys(ka[o], kb[o]) + (None, nf, None)
 
 
-def _full_table(gdb, lens, device):
+def _full_table(gdb, lens, device, prep=None):
     """One genome's sorted two-orientation GIX table, trimmed to its
-    entries' bucket."""
-    bps, coff, clen, invp, nc, N = _prep_genome(gdb, lens, device)
+    entries' bucket; ``prep``: the genome's ``_prep_genome`` tuple, where
+    the caller made it."""
+    bps, coff, clen, invp, nc, N = prep or _prep_genome(gdb, lens, device)
     Tf = gix_arrays(bps, coff, clen, invp, nc)
     Et = min(_pad_bucket(int(Tf[7])), 2 * N)
     return tuple(x[:Et] for x in Tf[:7]) + (Tf[7], Tf[8][:Et])
@@ -1217,7 +1218,10 @@ def device_tubes(gdb1, gdb2, alens_by_rank, freq: int = 10,
     takes its full two-orientation table, since the flip pass's members
     need its reverse-complement entries.  The seed slots are the
     expansion's own (merge_seeds), where the JAX package caps them at
-    N1."""
+    N1.  Each genome's ``_prep_genome`` runs under span ``devpipe.prep``
+    inside its table's span (``devpipe.gix1``, ``devpipe.gix2``); counter
+    ``devpipe.merge_rows`` counts the rows of the two tables that enter
+    the merge, padding included, once a call."""
     dev = torch.device("cuda" if device is None else device)
     lens1 = gdb1.contig_lengths()
     lens2 = gdb2.contig_lengths()
@@ -1225,17 +1229,21 @@ def device_tubes(gdb1, gdb2, alens_by_rank, freq: int = 10,
         raise Declined(reason)
     amax, bmax = int(lens1.max()), int(lens2.max())
 
+    def prep(gdb, lens):
+        with prof.span("devpipe.prep", dev):
+            return _prep_genome(gdb, lens, dev)
     with prof.span("devpipe.gix1", dev):
         if symmetric:
-            T1 = _full_table(gdb1, lens1, dev)
+            T1 = _full_table(gdb1, lens1, dev, prep(gdb1, lens1))
         else:
             # unsorted forward candidates -> count -> tight sorted driver
             # table (one half-size sort)
-            bps, coff, clen, invp, nc, N1 = _prep_genome(gdb1, lens1, dev)
+            bps, coff, clen, invp, nc, N1 = prep(gdb1, lens1)
             C1 = driver_candidates(bps, coff, clen, invp, nc)
             T1 = driver_table(C1, min(_pad_bucket(int(C1[7])), N1))
     with prof.span("devpipe.gix2", dev):
-        T2 = _full_table(gdb2, lens2, dev)
+        T2 = _full_table(gdb2, lens2, dev, prep(gdb2, lens2))
+    prof.count("devpipe.merge_rows", T1[0].shape[0] + T2[0].shape[0])
     with prof.span("devpipe.merge", dev):
         mout = (_sym_seeds_sum(T1, T2, freq=freq) if symmetric
                 else _merge_seeds_sum(T1, T2, freq=freq))
